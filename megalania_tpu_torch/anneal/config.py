@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 
-# blocks beyond the packed format's 1 MiB (annealable) cap would run the
-# host-side wide-distance optimum-parse pipeline, which the port does not
-# carry yet (compressor raises NotImplementedError)
+# blocks beyond the packed format's 1 MiB (annealable) cap run the
+# host-side wide-distance optimum-parse pipeline, DP-only (compressor)
 MAX_WIDE_BLOCK = 64 << 20
 
 

@@ -19,6 +19,15 @@ their plain versions.  There is no other switch.  The schedule counters
 the host decides on (it_in_epoch, epochs_done, moves_done, sweep_j,
 u_prev) are Python ints; snap_pos is a 0-d device tensor (it depends on
 the chains' sites), read by the repair kernel on the device.
+
+Chain sharding: with a torch.distributed process group (`group`), rank r
+of the group holds rows r*Cn .. (r+1)*Cn-1 of the single-process state
+(Cn = C / group size), bit for bit.  Chain identity is global (the
+mixed acceptance and init splits), the snapshot position is the minimum
+over the whole block, the best parse is exchanged across the group every
+iteration before an epoch restart reseeds from it (parallel/mesh.py),
+and moves_done counts the whole block.  Without a group there is no
+collective.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..match import candidates as C_
 from ..match.suffix import build_lce
@@ -162,37 +172,60 @@ def _repair_cost(slabs, q, u, ctx: BlockContext, cfg: AnnealConfig, **kw):
         lc=cfg.lc, **kw)
 
 
-def _init_rows(ctx: BlockContext, cfg: AnnealConfig, C: int):
-    """[C, n] initial slabs: init_slab, or under mixed/mixed_opt a
-    period-8 split with all-literal rows (cfg.mixed_greedy_frac)."""
+def chain_shard(group):
+    """(rank, size) of this process in the chain group; (0, 1) alone."""
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _init_rows(ctx: BlockContext, cfg: AnnealConfig, C: int,
+               offset: int = 0):
+    """[C, n] initial slabs of global chains offset .. offset+C-1:
+    init_slab, or under mixed/mixed_opt a period-8 split with all-literal
+    rows (cfg.mixed_greedy_frac) keyed on the global chain id."""
     n = ctx.data.shape[0]
     rows = ctx.init_slab.expand(C, n)
     if cfg.init in ("mixed", "mixed_opt"):
         lit = P.from_u32(P.literal_slab(n), ctx.device)
         g8 = max(0, min(8, round(cfg.mixed_greedy_frac * 8)))
-        use_lit = ((torch.arange(C, device=ctx.device) * g8 % 8) >= g8)
+        gid = torch.arange(C, device=ctx.device) + offset
+        use_lit = ((gid * g8 % 8) >= g8)
         rows = torch.where(use_lit[:, None], lit, rows)
     return rows.contiguous()
 
 
-def init_state(ctx: BlockContext, cfg: AnnealConfig) -> AnnealState:
-    """Fresh chains on the initial parse, costed once (a full walk)."""
+def init_state(ctx: BlockContext, cfg: AnnealConfig,
+               group=None) -> AnnealState:
+    """Fresh chains on the initial parse, costed once (a full walk).
+    With a chain group: this rank's rows, and the best of global chain 0
+    (held by the group's rank 0) broadcast to every rank."""
     n = ctx.data.shape[0]
     C = cfg.chains
+    rank, size = chain_shard(group)
+    if C % size:
+        raise ValueError(f"{C} chains do not split over {size} ranks")
+    Cn, off = C // size, rank * (C // size)
     dev = ctx.device
     all_keys = R.split(R.PRNGKey(cfg.seed, dev), C + 1)
-    keys, skey = all_keys[:C], all_keys[C]
+    keys, skey = all_keys[off:off + Cn], all_keys[C]
     ks = R.split(keys, 2)
     u = R.randint(ks[:, 1], (), 0, n)
     slabs, hi, lo, probs, rctx, rdists, rlive, count, snapc = _repair_cost(
-        _init_rows(ctx, cfg, C),
-        torch.full((C,), n, dtype=torch.int32, device=dev), u, ctx, cfg)
+        _init_rows(ctx, cfg, Cn, off),
+        torch.full((Cn,), n, dtype=torch.int32, device=dev), u, ctx, cfg)
     chains = ChainState(
         slab=slabs, cost_hi=hi, cost_lo=lo, rank_probs=probs, rec_ctx=rctx,
         rec_dists=rdists, rec_live=rlive, live_count=count, key=ks[:, 0],
         snap_carry=snapc)
+    best_slab, best = slabs[0].clone(), torch.stack([hi[0], lo[0]])
+    if group is not None:
+        src = dist.get_global_rank(group, 0)
+        dist.broadcast(best_slab, src=src, group=group)
+        dist.broadcast(best, src=src, group=group)
     return AnnealState(
-        chains=chains, best_slab=slabs[0], best_hi=hi[0], best_lo=lo[0],
+        chains=chains, best_slab=best_slab, best_hi=best[0],
+        best_lo=best[1],
         it_in_epoch=0, epochs_done=0, moves_done=0, sweep_j=0,
         snap_pos=torch.zeros((), dtype=torch.int32, device=dev), u_prev=0,
         skey=skey)
@@ -225,7 +258,7 @@ def _p_trans(cfg: AnnealConfig, n: int, it_in_epoch: int, step: int):
 
 
 def _chains_iter(state: AnnealState, ctx: BlockContext, step: int,
-                 cfg: AnnealConfig):
+                 cfg: AnnealConfig, group):
     """One lockstep move for all C chains (each evaluating cfg.proposals
     proposals and keeping the exact best of them).  Under the sweep
     schedule the pass is a PARTIAL re-cost from the previous pass's
@@ -274,9 +307,13 @@ def _chains_iter(state: AnnealState, ctx: BlockContext, step: int,
                             chains.rec_dists)
 
     if sched == "sweep":
-        # capture at the highest tile boundary valid for every chain:
-        # <= every mutation site and <= every recording site
-        cap_pos = torch.minimum(q.min(), torch.tensor(u_min, device=dev))
+        # capture at the highest tile boundary valid for every chain of
+        # the block (all ranks of a chain group): <= every mutation site
+        # and <= every recording site
+        qmin = q.min()
+        if group is not None:
+            dist.all_reduce(qmin, op=dist.ReduceOp.MIN, group=group)
+        cap_pos = torch.minimum(qmin, torch.tensor(u_min, device=dev))
         cap_pos = torch.maximum(cap_pos // tile * tile, start_pos).to(i32)
     else:
         cap_pos = None                   # capture the final state
@@ -325,14 +362,15 @@ def _chains_iter(state: AnnealState, ctx: BlockContext, step: int,
 
     # acceptance: first / better / cooled transition (main.c:86);
     # "greedy" zeroes the exploratory transition, "mixed" keeps it on
-    # even chain ids only
+    # even global chain ids only
     if cfg.accept == "greedy":
         p_trans = torch.tensor(0.0, dtype=torch.float32)
     else:
         p_trans = _p_trans(cfg, n, state.it_in_epoch, step)
     trans = R.uniform(k_acc) < p_trans.to(dev)
     if cfg.accept == "mixed":
-        trans = trans & (torch.arange(Cn, device=dev) % 2 == 0)
+        gid = torch.arange(Cn, device=dev) + chain_shard(group)[0] * Cn
+        trans = trans & (gid % 2 == 0)
     first = chains.cost_hi == int(fp.INF_HI)
     better = fp.less(hi, lo, chains.cost_hi, chains.cost_lo)
     accept = first | better | trans
@@ -349,8 +387,10 @@ def _chains_iter(state: AnnealState, ctx: BlockContext, step: int,
 
 
 def anneal_iteration(state: AnnealState, ctx: BlockContext,
-                     cfg: AnnealConfig) -> AnnealState:
-    """One lockstep move across all chains + best/restart bookkeeping."""
+                     cfg: AnnealConfig, group=None) -> AnnealState:
+    """One lockstep move across all chains + best/restart bookkeeping.
+    With a chain group the best is the block's, exchanged across the
+    group before a restart can reseed from it."""
     n = ctx.data.shape[0]
     iters = cfg.iters(n)
     sched = effective_schedule(cfg)
@@ -361,7 +401,9 @@ def anneal_iteration(state: AnnealState, ctx: BlockContext,
     epochs_per_step = max(min_eps, -(-cfg.num_epochs // cfg.chains))
     step = min(state.epochs_done // epochs_per_step, cfg.num_steps - 1)
 
-    chains, skey_next, u_base, cap_pos = _chains_iter(state, ctx, step, cfg)
+    chains, skey_next, u_base, cap_pos = _chains_iter(state, ctx, step, cfg,
+                                                      group)
+    rank, size = chain_shard(group)
 
     # global best (reference keeps one best slab, main.c:89-92)
     b = fp.argmin(chains.cost_hi, chains.cost_lo)
@@ -370,6 +412,10 @@ def anneal_iteration(state: AnnealState, ctx: BlockContext,
     best_slab = torch.where(improved, chains.slab[b], state.best_slab)
     best_hi = torch.where(improved, cand_hi, state.best_hi)
     best_lo = torch.where(improved, cand_lo, state.best_lo)
+    if group is not None:
+        from ..parallel import mesh
+        best_slab, best_hi, best_lo = mesh.exchange_best(
+            best_slab, best_hi, best_lo, state.best_hi, state.best_lo, group)
 
     # epoch restart (main.c:70-77): step 0 from the initial parse, else
     # from the best
@@ -379,7 +425,7 @@ def anneal_iteration(state: AnnealState, ctx: BlockContext,
         Cn = chains.slab.shape[0]
         next_step = min((state.epochs_done + 1) // epochs_per_step,
                         cfg.num_steps - 1)
-        reseed = (_init_rows(ctx, cfg, Cn) if next_step == 0
+        reseed = (_init_rows(ctx, cfg, Cn, rank * Cn) if next_step == 0
                   else best_slab.expand(Cn, n).contiguous())
         zeros = torch.zeros_like(chains.rec_live)
         chains = chains._replace(
@@ -400,16 +446,19 @@ def anneal_iteration(state: AnnealState, ctx: BlockContext,
         chains=chains, best_slab=best_slab, best_hi=best_hi.to(i32),
         best_lo=best_lo.to(i32), it_in_epoch=0 if restart else it,
         epochs_done=state.epochs_done + int(restart),
-        moves_done=state.moves_done + chains.slab.shape[0] * cfg.proposals,
+        # the block's moves: every rank of a chain group counts them all
+        moves_done=state.moves_done
+        + chains.slab.shape[0] * cfg.proposals * size,
         sweep_j=j_next, snap_pos=cap_pos, u_prev=u_base, skey=skey_next)
 
 
 def run_iters(state: AnnealState, ctx: BlockContext, cfg: AnnealConfig,
-              n_iters: int) -> AnnealState:
-    """n_iters lockstep iterations."""
+              n_iters: int, group=None) -> AnnealState:
+    """n_iters lockstep iterations (of this rank's chains, with a chain
+    group)."""
     with torch.inference_mode():
         for _ in range(n_iters):
-            state = anneal_iteration(state, ctx, cfg)
+            state = anneal_iteration(state, ctx, cfg, group)
     return state
 
 

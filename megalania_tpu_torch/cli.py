@@ -4,9 +4,15 @@
 stream to stdout (or -o) and progress to stderr; plus decompress/verify.
 The anneal runs on --device: "cuda" (the default) runs the CUDA kernels
 and fails when there is no card; "cpu" runs their plain PyTorch versions.
-Flags of megalania_tpu's CLI that the port does not carry yet
-(--platform, --distributed, --kernel, --ranker, --checkpoint*,
---resume, --metrics-jsonl) are absent.
+--checkpoint/--resume continue an interrupted run exactly,
+--metrics-jsonl logs one record per segment, and --distributed joins the
+process group torchrun describes (nccl for cuda, gloo for cpu):
+
+    torchrun --nproc-per-node N -m megalania_tpu_torch.cli --distributed \
+        compress FILE -o out.lzma
+
+megalania_tpu's --platform, --kernel and --ranker select JAX backends
+and kernels; the port dispatches on --device alone.
 """
 from __future__ import annotations
 
@@ -20,10 +26,13 @@ from . import compressor
 
 def _progress_printer(t0):
     def cb(info):
+        head = "block %d" % (info["block"] + 1)
+        if "chain_ranks" in info:        # sharded: chains over ranks
+            head += " (%d chain ranks)" % info["chain_ranks"]
         sys.stderr.write(
-            "block %d  current file size: %.2f  iter %d/%d  epochs: %d  "
+            "%s  current file size: %.2f  iter %d/%d  epochs: %d  "
             "moves: %d  %.1f moves/s  %.1fs\n" % (
-                info["block"] + 1, info["best_bytes"], info["iter"],
+                head, info["best_bytes"], info["iter"],
                 info["iters"], info["epochs"], info["moves"],
                 info["moves_per_sec"], time.time() - t0))
     return cb
@@ -50,6 +59,11 @@ def _device(name: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="megalania-tpu-torch")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the torch.distributed group torchrun "
+                    "describes (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                    "MASTER_PORT); blocks are shared out over block groups "
+                    "and chains over ranks, and rank 0 writes the output")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     c = sub.add_parser("compress", help="anneal-compress a file")
@@ -92,6 +106,14 @@ def main(argv=None):
                    choices=["cooled", "greedy", "mixed"])
     c.add_argument("--lrep-fallback", default="match",
                    choices=["litsrep", "match"])
+    c.add_argument("--checkpoint", default=None, metavar="DIR",
+                   help="checkpoint directory (per-block state + streams)")
+    c.add_argument("--checkpoint-every", type=int, default=4,
+                   help="segments between checkpoint saves")
+    c.add_argument("--resume", action="store_true",
+                   help="continue from an existing checkpoint")
+    c.add_argument("--metrics-jsonl", default=None, metavar="PATH",
+                   help="append structured per-segment metrics as JSONL")
 
     d = sub.add_parser("decompress", help="decode .lzma/.mlz")
     d.add_argument("file")
@@ -103,6 +125,19 @@ def main(argv=None):
 
     args = ap.parse_args(argv)
 
+    if not (args.distributed and args.cmd == "compress"):
+        return _run(args, 0)
+    import torch.distributed as dist
+    from .parallel import multihost
+    rank = multihost.initialize(_device(args.device))
+    try:
+        return _run(args, rank)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, rank: int) -> int:
     if args.cmd == "compress":
         data = open(args.file, "rb").read()
         cb = args.chain_block or (
@@ -122,12 +157,21 @@ def main(argv=None):
         )
         device = _device(args.device)
         progress = None if args.quiet else _progress_printer(time.time())
+        metrics = None
+        if args.metrics_jsonl:
+            from .utils.metrics import MetricsLogger
+            metrics = MetricsLogger(jsonl_path=args.metrics_jsonl)
         blob = compressor.compress(data, cfg, total_moves=args.moves,
-                                   progress=progress, device=device)
-        _write(args.output, blob)
-        sys.stderr.write(
-            "in: %d bytes  out: %d bytes  ratio: %.4f\n"
-            % (len(data), len(blob), len(blob) / max(len(data), 1)))
+                                   progress=progress,
+                                   checkpoint_dir=args.checkpoint,
+                                   checkpoint_every=args.checkpoint_every,
+                                   resume=args.resume, metrics=metrics,
+                                   device=device)
+        if rank == 0:
+            _write(args.output, blob)
+            sys.stderr.write(
+                "in: %d bytes  out: %d bytes  ratio: %.4f\n"
+                % (len(data), len(blob), len(blob) / max(len(data), 1)))
     elif args.cmd == "decompress":
         blob = open(args.file, "rb").read()
         _write(args.output, compressor.decompress(blob))

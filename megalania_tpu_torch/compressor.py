@@ -1,15 +1,20 @@
 """Top-level compression API: file bytes -> .lzma / .mlz container.
 
-Blocks are independent LZMA-alone streams, annealed one after another on
-one device (the block queue of megalania_tpu.compressor); a block that
-fails raises.  Mesh sharding, multi-host, checkpoint/resume, metrics and
-wide (> 1 MiB) blocks are not carried by the port yet.
+Blocks are independent LZMA-alone streams on a work queue (the block
+queue of megalania_tpu.compressor), with per-block checkpoint/resume
+(exact: the PRNG keys are part of the state), structured metrics, wide
+(> 1 MiB) DP-only blocks, and scale-out over torch.distributed: when a
+process group of more than one rank is up, the blocks are shared out
+over block groups and each block's chains over the ranks of its group
+(parallel/mesh.py), and the streams are gathered in order at the end.
+A block that fails raises.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -17,7 +22,11 @@ from .anneal import engine
 from .anneal.config import AnnealConfig
 from .models import packets as P
 from .parallel import blocks as blocks_mod
+from .parallel import mesh as mesh_mod
+from .parallel import multihost
 from .runtime import emit as emit_mod
+from .utils import checkpoint as ckpt_mod
+from .utils.metrics import MetricsLogger
 
 
 @dataclass
@@ -35,56 +44,97 @@ def reference_budget(n: int, cfg: AnnealConfig) -> int:
     return cfg.num_steps * cfg.num_epochs * max(n, 1)
 
 
-def _seed_slab(data: bytes, cfg: AnnealConfig) -> np.ndarray:
+def _seed_slab(data: bytes, cfg: AnnealConfig):
     """Host-only initial parse for the DP-only (total_moves=0) mode — the
-    same seed functions make_context uses."""
+    same seed functions make_context uses.
+
+    Returns (slab, dists): dists is None for packed-format blocks and the
+    full-width distance array for wide (> 1 MiB) blocks, which always use
+    the optimum parse (the only seed that carries wide distances)."""
     from .match import candidates as C_
     from .match import optparse
     from .match.suffix import build_lce
 
     arr = np.frombuffer(bytes(data), np.uint8)
-    if cfg.init == "literal":
-        return P.literal_slab(len(arr))
-    if cfg.init in ("optimal", "mixed_opt"):
-        return optparse.seed_slab(arr, cfg)[0]
+    wide = len(arr) > P.MAX_BLOCK
+    if cfg.init == "literal" and not wide:
+        return P.literal_slab(len(arr)), None
+    if wide or cfg.init in ("optimal", "mixed_opt"):
+        return optparse.seed_slab(arr, cfg, wide=wide)
     idx = build_lce(arr)
     tab = C_.build_candidates(arr, cfg.max_candidates, cfg.max_walk, idx)
-    return C_.greedy_slab(arr, tab)
+    return C_.greedy_slab(arr, tab), None
 
 
 def compress_block(data: bytes, cfg: AnnealConfig,
                    total_moves: Optional[int] = None,
                    segment_iters: int = 256,
                    progress: Optional[Callable[[dict], None]] = None,
-                   block_id: int = 0, device="cuda") -> BlockResult:
-    """Anneal one block on `device` and emit its .lzma stream."""
+                   checkpoint_path: Optional[str] = None,
+                   checkpoint_every: int = 4,
+                   resume: bool = False,
+                   metrics: Optional[MetricsLogger] = None,
+                   block_id: int = 0, device="cuda",
+                   group=None) -> BlockResult:
+    """Anneal one block on `device` and emit its .lzma stream.
+
+    checkpoint_path: npz file updated every `checkpoint_every` segments
+    and at the end; with resume=True an existing file continues the run
+    exactly.  group: the chain group this block's chains are split over
+    (every rank of it calls this function); the checkpoint then holds the
+    whole block's state, written by the group's rank 0, so it resumes
+    under any layout, a single process included.  Progress and metrics
+    come from the group's rank 0.
+    """
     t0 = time.time()
     n = len(data)
-    if n > P.MAX_BLOCK:
-        raise NotImplementedError(
-            f"block of {n} bytes: wide (> {P.MAX_BLOCK} byte) blocks are "
-            "not carried by megalania_tpu_torch yet")
     if n == 0:
         return BlockResult(emit_mod.emit(b"", np.zeros(0, np.uint32)), 0,
                            18.0, 0, time.time() - t0)
     if total_moves == 0:
-        # DP-only mode: emit the configured initial parse directly
-        stream = emit_mod.emit(data, _seed_slab(data, cfg),
-                               dict_size=cfg.dict_size, lc=cfg.lc)
+        # DP-only mode: emit the configured initial parse directly (the
+        # only mode for wide blocks)
+        slab, dists = _seed_slab(data, cfg)
+        stream = emit_mod.emit(data, slab, dict_size=cfg.dict_size,
+                               lc=cfg.lc, dists=dists)
         return BlockResult(stream, n, 0.0, 0, time.time() - t0)
+    if n > P.MAX_BLOCK:
+        raise ValueError(
+            f"blocks over {P.MAX_BLOCK} bytes exceed the packed dist "
+            "field and run the wide DP-only pipeline: pass "
+            "total_moves=0 (CLI --moves 0)")
     if total_moves is None:
         total_moves = reference_budget(n, cfg)
-    # one move = one costed proposal (the reference's unit, main.c:78)
+    # one move = one costed proposal (the reference's unit, main.c:78);
+    # an iteration costs chains * proposals of them
     iters = max(1, total_moves // (cfg.chains * cfg.proposals))
+    rank, size = engine.chain_shard(group)
+    lead = rank == 0
 
     ctx = engine.make_context(data, cfg, device)
-    state = engine.init_state(ctx, cfg)
-    done = 0
-    seg_t, seg_moves = time.time(), 0
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        state = ckpt_mod.load(checkpoint_path, device)
+        # moves_done counts chains*proposals per iteration; rebuild the
+        # completed ITERATIONS (the unit the loop advances by)
+        done = state.moves_done // (cfg.chains * cfg.proposals)
+        if group is not None:
+            state = mesh_mod.shard_state(state, rank, size)
+    else:
+        state = engine.init_state(ctx, cfg, group)
+        done = 0
+    segs = 0
+    seg_t, seg_moves = time.time(), state.moves_done
     while done < iters:
         seg = min(segment_iters, iters - done)
-        state = engine.run_iters(state, ctx, cfg, seg)
+        state = engine.run_iters(state, ctx, cfg, seg, group)
         done += seg
+        segs += 1
+        if checkpoint_path and (segs % checkpoint_every == 0
+                                or done >= iters):
+            whole = (state if group is None
+                     else mesh_mod.gather_state(state, group))
+            if lead:
+                ckpt_mod.save(checkpoint_path, whole)
         best = engine.best_cost_bytes(state)      # waits for the device
         now = time.time()
         info = {
@@ -92,13 +142,17 @@ def compress_block(data: bytes, cfg: AnnealConfig,
             "iter": done,
             "iters": iters,
             "moves": state.moves_done,
-            "moves_per_sec": (state.moves_done - seg_moves)
-            / max(now - seg_t, 1e-9),
-            "best_bytes": best,
+            "moves_per_sec": round((state.moves_done - seg_moves)
+                                   / max(now - seg_t, 1e-9), 1),
+            "best_bytes": round(best, 2),
             "epochs": state.epochs_done,
         }
+        if group is not None:
+            info["chain_ranks"] = size
         seg_t, seg_moves = now, state.moves_done
-        if progress is not None:
+        if lead and metrics is not None:
+            metrics.log(**info)
+        if lead and progress is not None:
             progress(info)
     stream = emit_mod.emit(data, P.to_u32(state.best_slab),
                            dict_size=cfg.dict_size, lc=cfg.lc)
@@ -109,23 +163,67 @@ def compress_block(data: bytes, cfg: AnnealConfig,
 def compress(data: bytes, cfg: AnnealConfig = AnnealConfig(),
              total_moves: Optional[int] = None,
              progress: Optional[Callable[[dict], None]] = None,
+             checkpoint_dir: Optional[str] = None,
+             checkpoint_every: int = 4,
+             resume: bool = False,
+             metrics: Optional[MetricsLogger] = None,
              device="cuda") -> bytes:
     """Compress to a plain .lzma (single block) or .mlz container,
     annealing on `device` ("cuda" runs the kernels, "cpu" their plain
-    versions)."""
+    versions).
+
+    checkpoint_dir holds block{bi}.npz (a block's state while it runs)
+    and block{bi}.lzma (its finished stream); with resume=True finished
+    blocks are read back and running ones continue from their state.
+    Under a process group of more than one rank every rank calls this
+    with the same arguments and gets the same bytes.
+    """
     parts = blocks_mod.split_blocks(data, cfg.block_size)
-    out: List[BlockResult] = []
-    for bi, part in enumerate(parts):
+    world = multihost.world()[1]
+    if checkpoint_dir:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+    mesh = group = None
+    if world > 1 and total_moves != 0:
+        # the full-size blocks set the layout (as the reference's mesh
+        # path does); the tail block joins the round-robin
+        full = sum(len(p) == cfg.block_size for p in parts)
+        mesh = mesh_mod.make_mesh(max(full, 1))
+        group = mesh.chain_group if mesh.chains > 1 else None
+    # DP-only work is host-side and never split: round-robin over ranks
+    mine = multihost.my_blocks(len(parts), mesh)
+    lead = mesh is None or mesh.chain_rank == 0
+
+    results = {}
+    for bi in mine:
+        part = parts[bi]
+        done_path = (os.path.join(checkpoint_dir, f"block{bi}.lzma")
+                     if checkpoint_dir else None)
+        if resume and done_path and os.path.exists(done_path):
+            with open(done_path, "rb") as f:
+                results[bi] = f.read()
+            continue
+        ck_path = (os.path.join(checkpoint_dir, f"block{bi}.npz")
+                   if checkpoint_dir else None)
         moves = None
         if total_moves is not None:
             moves = (0 if total_moves == 0
                      else max(1, total_moves // len(parts)))
-        out.append(compress_block(part, cfg, moves, progress=progress,
-                                  block_id=bi, device=device))
-    if len(out) == 1:
-        return out[0].stream
-    return blocks_mod.pack_container([r.stream for r in out],
-                                     [r.raw_len for r in out])
+        res = compress_block(part, cfg, moves, progress=progress,
+                             checkpoint_path=ck_path,
+                             checkpoint_every=checkpoint_every,
+                             resume=resume, metrics=metrics, block_id=bi,
+                             device=device, group=group)
+        results[bi] = res.stream
+        if done_path and lead:
+            with open(done_path, "wb") as f:
+                f.write(res.stream)
+            if os.path.exists(ck_path):
+                os.unlink(ck_path)
+
+    streams = multihost.gather_streams(results, len(parts))
+    if len(streams) == 1:
+        return streams[0]
+    return blocks_mod.pack_container(streams, [len(p) for p in parts])
 
 
 def decompress(blob: bytes) -> bytes:

@@ -23,7 +23,7 @@ from . import candidates as C_
 
 def build_optimal_slab_native(data, tab: C_.CandidateTable, lc: int = 0,
                               passes: int = 4, win_size: int = 8192,
-                              index=None) -> np.ndarray:
+                              index=None, wide: bool = False):
     """xz-class optimum-parse seed via the native Viterbi engine.
 
     Each pass parses with STATIC price tables snapshotted every
@@ -34,6 +34,9 @@ def build_optimal_slab_native(data, tab: C_.CandidateTable, lc: int = 0,
     rep stack, and every candidate length 2..273 is relaxed (the
     reference's semantics, substring_enumerator.c:85-105).  The parse
     with the cheapest EXACT adaptive cost across passes wins.
+
+    Returns (slab, dists): with wide=True dists is the full-width
+    distance array (blocks over 1 MiB), otherwise None.
     """
     from . import optparse_native as on
     from ..models import packets as P
@@ -42,7 +45,8 @@ def build_optimal_slab_native(data, tab: C_.CandidateTable, lc: int = 0,
         data, (bytes, bytearray)) else np.asarray(data, np.uint8)
     n = len(data)
     if n == 0:
-        return np.asarray(P.literal_slab(0))
+        return (np.asarray(P.literal_slab(0)),
+                np.zeros(0, np.uint32) if wide else None)
     if index is None:
         from .suffix import build_lce
         index = build_lce(data)
@@ -55,34 +59,34 @@ def build_optimal_slab_native(data, tab: C_.CandidateTable, lc: int = 0,
     def parse(pw, ws):
         return on.viterbi_parse(data, pw, tab.dist, tab.length,
                                 index.rank, index.sparse, lc=lc,
-                                win_size=ws)
+                                win_size=ws, wide=wide)
 
     fresh = T.init_probs_np(lc=lc)[None, :]
     first = parse(fresh, 0)
     best, best_cost = first, None
     for win in wins:
         nwin = -(-n // win)
-        slab = first
+        slab, dw = first
         for _ in range(max(0, passes - 1)):
             cost, _, snaps = on.cost_train(data, slab, lc=lc, nwin=nwin,
-                                           win_size=win)
+                                           win_size=win, dists=dw)
             if best_cost is None or cost < best_cost:
-                best, best_cost = slab, cost
-            slab = parse(snaps, win)
-        cost, _ = on.cost_train(data, slab, lc=lc)
+                best, best_cost = (slab, dw), cost
+            slab, dw = parse(snaps, win)
+        cost, _ = on.cost_train(data, slab, lc=lc, dists=dw)
         if best_cost is None or cost < best_cost:
-            best, best_cost = slab, cost
+            best, best_cost = (slab, dw), cost
     return best
 
 
-def seed_slab(data, cfg, index=None):
+def seed_slab(data, cfg, index=None, wide: bool = False):
     """Config-driven optimum-parse seed — the single function behind
     both engine.make_context and the compressor's DP-only mode, so their
     seeds can never drift.
 
-    Returns (slab, None) (None: no wide-distance array; wide blocks are
-    not carried by the port).  The native library is built from
-    megalania_tpu/runtime/native/optparse.cpp on first use; a failed
+    Returns (slab, dists): dists is the full-width distance array of a
+    wide (> 1 MiB) block, None otherwise.  The native library is built
+    from megalania_tpu/runtime/native/optparse.cpp on first use; a failed
     build raises."""
     data = np.frombuffer(bytes(data), np.uint8) if isinstance(
         data, (bytes, bytearray)) else np.asarray(data, np.uint8)
@@ -93,4 +97,4 @@ def seed_slab(data, cfg, index=None):
                               index)
     return build_optimal_slab_native(
         data, tab, lc=cfg.lc, passes=cfg.opt_passes,
-        win_size=cfg.opt_window, index=index), None
+        win_size=cfg.opt_window, index=index, wide=wide)

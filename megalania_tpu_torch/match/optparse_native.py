@@ -57,22 +57,27 @@ def _p(a, t):
 
 
 def cost_train(data: np.ndarray, slab: np.ndarray, lc: int = 0,
-               nwin: int = 0, win_size: int = 0):
+               nwin: int = 0, win_size: int = 0, dists=None):
     """Exact adaptive cost of a parse.
 
     Returns (perplexity, trained_probs[, snapshots]) — snapshots of the
     model at each win_size boundary when nwin > 0 (snapshot w = model
     state entering position w * win_size; window 0 is the fresh model).
+    dists: optional full-width per-position MATCH distances (wide blocks,
+    > 1 MiB; they override the packed 20-bit dist field).
     """
     lib = _load()
     data = np.ascontiguousarray(data, np.uint8)
     slab = np.ascontiguousarray(slab, np.uint32)
+    if dists is not None:
+        dists = np.ascontiguousarray(dists, np.uint32)
     probs = np.ascontiguousarray(T.init_probs_np(lc=lc))
     stride = probs.shape[-1]
     snaps = np.zeros((max(nwin, 1), stride), np.int32)
     log2 = np.ascontiguousarray(T.LOG2_TABLE_NP)
     perp = lib.meg_cost_train(
-        _p(data, _U8P), len(data), _p(slab, _U32P), None, lc,
+        _p(data, _U8P), len(data), _p(slab, _U32P),
+        None if dists is None else _p(dists, _U32P), lc,
         _p(probs, _I32P),
         _p(snaps, _I32P) if nwin > 0 else None, nwin, win_size, stride,
         _p(log2, _I64P), _p(_OFFSETS, _I32P), len(_OFFSETS))
@@ -96,11 +101,14 @@ def lcp(data: np.ndarray, sa: np.ndarray) -> np.ndarray:
 def viterbi_parse(data: np.ndarray, probs_win: np.ndarray,
                   cand_dist: np.ndarray, cand_len: np.ndarray,
                   rank: np.ndarray, sparse: np.ndarray,
-                  lc: int = 0, win_size: int = 0) -> np.ndarray:
-    """One Viterbi pass over windowed static prices -> packed slab.
+                  lc: int = 0, win_size: int = 0, wide: bool = False):
+    """One Viterbi pass over windowed static prices -> (packed slab,
+    dists).
 
     probs_win: [nwin, stride] price snapshots (nwin == 1 reproduces the
-    single static-price parse; win_size ignored then)."""
+    single static-price parse; win_size ignored then).  dists is the
+    full-width distance array with wide=True (blocks over 1 MiB, where
+    the packed 20-bit dist field truncates), None otherwise."""
     lib = _load()
     data = np.ascontiguousarray(data, np.uint8)
     n = len(data)
@@ -116,11 +124,13 @@ def viterbi_parse(data: np.ndarray, probs_win: np.ndarray,
     K = sparse.shape[0]
     log2 = np.ascontiguousarray(T.LOG2_TABLE_NP)
     slab = np.empty(n, np.uint32)
+    dw = np.empty(n, np.uint32) if wide else None
     rc = lib.meg_optparse_viterbi(
         _p(data, _U8P), n, _p(probs_win, _I32P), nwin, win_size, stride,
         lc, _p(cand_dist, _I32P), _p(cand_len, _I32P), M,
         _p(rank, _I32P), _p(sparse, _I32P), K, _p(log2, _I64P),
-        _p(_OFFSETS, _I32P), len(_OFFSETS), _p(slab, _U32P), None)
+        _p(_OFFSETS, _I32P), len(_OFFSETS), _p(slab, _U32P),
+        None if dw is None else _p(dw, _U32P))
     if rc < 0:
         raise ValueError("native viterbi failed")
-    return slab
+    return slab, dw

@@ -4,7 +4,8 @@ The op stream comes from ops/emit_plan.py (the bit plan is the single
 source of truth for bit order); the C++ range coder,
 megalania_tpu/runtime/native/emitter.cpp built into the port's build
 directory, only replays it.  A failed build raises: the port has no
-fallback emitter (runtime/pyemit.py is the test oracle).
+fallback emitter: runtime/pyemit.py is the test oracle, and the emitter
+of wide blocks only (see emit).
 """
 from __future__ import annotations
 
@@ -70,8 +71,16 @@ def emit_from_opstream(idx, bit, active, n_direct, direct_val,
 
 
 def emit(data: bytes, slab: np.ndarray, dict_size: int = 0x400000,
-         lc: int = 0) -> bytes:
-    """Parse (uint32 slab) -> complete .lzma stream."""
+         lc: int = 0, dists=None) -> bytes:
+    """Parse (uint32 slab) -> complete .lzma stream.
+
+    dists: the full-width distances of a wide (> 1 MiB) block.  Those
+    blocks go through pyemit, the only emitter that has them: the op
+    stream and the native range coder read the packed 20-bit dist field,
+    so for wide blocks pyemit is the emitter, not a fallback."""
+    if dists is not None:
+        return pyemit.emit(data, slab, dict_size=dict_size, lc=lc,
+                           dists=dists)
     _, idx, bit, active, n_direct, direct_val = emit_plan.emit_plan(
         slab, data, lc=lc)
     header = pyemit.lzma_header(len(data), lc=lc, dict_size=dict_size)
