@@ -3,10 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch version on the card, runs the engine on cuda and on cpu
-and compares the states, then compresses a real 64 KiB block through the
-port's CLI with 128 chains and checks the output.  Later phases drive
+Builds the port's CUDA kernels from this checkout (and prints ptxas's
+registers per kernel), holds each against its plain PyTorch version on
+the card, runs the engine on cuda and on cpu and compares the states,
+then compresses a real 64 KiB block through the port's CLI with 128
+chains and checks the output.  Phase 8 times the kernels at the main
+path's shapes beside their bounds (bytes over the HBM rate, or
+operations over their peak, from this run's inputs), times the repair
+kernel's full walk per packet, and holds the repair kernel with the
+block's bytes in device memory (a 256 KiB block) against its plain
+version.  Later phases drive
 the other paths on the card: an interrupted and resumed 64 KiB block
 against the uninterrupted one, the whole-parse cost (scan_cost) against
 the native cost, and the chain-sharded anneal over a one-rank NCCL group
@@ -32,6 +38,14 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32 outside
+# the tensor cores, and int32 at half that (an SM issues 64 INT32 lanes a
+# clock against 128 FP32).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+I32_OPS_PER_S = 33.5e12
+# integer operations per coded bit: the cost lookup, the sum, the adapt
+OPS_PER_BIT = 3
 CORPUS = os.path.join(ROOT, "tools", "corpus", "libc.so")
 WORK = os.path.join(ROOT, "megalania_tpu_torch", "_build", "smoke")
 
@@ -95,6 +109,38 @@ def same_state(a: dict, b: dict, what: str):
             check(np.array_equal(a[f], b[f]), f"{what}: {f}")
 
 
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate
+    and the operations over their peak rate."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def repair_work(slab_in, q, out, start: int, M: int, PR: int, mut=None):
+    """What one repair launch must move and do, from its inputs and its
+    output: (bytes, operations, packets walked per chain).  Each input is
+    read once and each output written once: the slab in and out whole
+    (the prefix passes through), the block's bytes, the log2 table,
+    snapshot probabilities and carries, and the candidate rows of the
+    long-rep packets the repair re-aims (data-dependent: the union over
+    chains of the positions where a walked packet at or after q was a
+    long rep).  Operations: OPS_PER_BIT for each of the 26 bit-plan slots
+    of every packet walked (an upper bound on the bits coded)."""
+    import torch
+    from megalania_tpu_torch.ops import repair_scan
+    C, n = slab_in.shape
+    src = slab_in if mut is None else repair_scan.substitute(
+        slab_in, q, *mut, start)
+    pos = torch.arange(n, device=slab_in.device)
+    walked = (out < 0) & (pos >= start)            # live bit = sign bit
+    lrep = walked & (pos >= q[:, None].long()) & (((src >> 29) & 3) == 3)
+    rows = int(lrep.any(0).sum())
+    packets = walked.sum(1)
+    nbytes = (2 * C * n * 4 + n + 2 * rows * M * 4 + 2048 * 4
+              + 2 * C * PR * 4 + 2 * C * 16 * 4 + C * 9 * 4 + 5 * C * 4 + 8)
+    return nbytes, OPS_PER_BIT * 26 * int(packets.sum()), packets
+
+
 def max_abs_diff(got, want) -> int:
     """Largest |difference| over matching output tuples (exact: 0)."""
     import torch
@@ -120,8 +166,8 @@ def main() -> int:
     from megalania_tpu_torch.anneal.config import AnnealConfig
     from megalania_tpu_torch.match import optparse_native
     from megalania_tpu_torch.models import packets as P
-    from megalania_tpu_torch.ops import (log2_cuda, rank_cuda, repair_cuda,
-                                         tables as T)
+    from megalania_tpu_torch.ops import (log2_cuda, problayout, rank_cuda,
+                                         repair_cuda, tables as T)
     from megalania_tpu_torch.runtime import build
 
     os.makedirs(WORK, exist_ok=True)
@@ -155,11 +201,23 @@ def main() -> int:
     build.host_lib("optparse")
     build.host_lib("emitter")
     ptxas = open(so[:-3] + ".log").read()
-    regs = re.findall(r"Function properties for (\w+)|Used (\d+) registers",
-                      ptxas)
+    # ptxas -v, per kernel: stack, spills, registers, barriers
+    entries = re.findall(r"Compiling entry function '(\w+)'.*?\n(.*?)"
+                         r"Compile time", ptxas, re.S)
+    names = (("repair_kernelILb1E", "repair_kernel<bytes in smem>"),
+             ("repair_kernelILb0E", "repair_kernel<bytes in global>"),
+             ("rank_kernel", "rank_kernel"), ("probe", "log2_probe_kernel"))
+    regs = {next((nm for key, nm in names if key in e), e): " ".join(
+        re.sub(r"ptxas info\s*:|Function properties for \w+", "",
+               txt).split()) for e, txt in entries}
+    check(all(nm in regs for _, nm in names[:2]),
+          f"ptxas reported both repair kernels: {regs}")
+    plan64 = repair_cuda.staging_plan(65536, 0)
     say("build", seconds=round(time.time() - t, 2),
         lib=os.path.relpath(so, ROOT),
-        ptxas=";".join(r[1] for r in regs if r[1]) + " registers")
+        ptxas=json.dumps(regs),
+        repair_smem_bytes_64k=plan64.smem_bytes,
+        repair_bytes_in_smem_64k=plan64.bytes_in_smem)
 
     # ---- 3. log2 probe -----------------------------------------------
     raw = log2_cuda.log2_probe_cuda(dev)
@@ -205,7 +263,7 @@ def main() -> int:
     def both(slab_in, q_, u_, lc=0, **kw):
         c_ = ctx if lc == 0 else lc_ctx
         got = repair_cuda.repair_cost_cuda(
-            slab_in, q_, u_, c_.data, c_.cand_dist, c_.cand_len, c_.corr,
+            slab_in, q_, u_, c_.data_u8, c_.cand_dist, c_.cand_len, c_.log2,
             lc=lc, lrep_fallback="match", **kw)
         want = repair_cuda.repair_cost_plain(
             slab_in, q_, u_, c_.data, c_.cand_dist, c_.cand_len, c_.log2,
@@ -241,7 +299,7 @@ def main() -> int:
         worst = max(worst, d)
     # the partial re-cost equals the full walk it replaces
     full2 = repair_cuda.repair_cost_cuda(
-        got1[0], q2, u2, ctx.data, ctx.cand_dist, ctx.cand_len, ctx.corr,
+        got1[0], q2, u2, ctx.data_u8, ctx.cand_dist, ctx.cand_len, ctx.log2,
         lrep_fallback="match")
     part2 = cases["partial_from_512"][0]
     check(max_abs_diff(part2[:3], full2[:3]) == 0
@@ -365,27 +423,35 @@ def main() -> int:
     q64 = ti(rng.integers(0, n64, C))
     u64 = ti(rng.integers(0, n64, C))
     kw = dict(lrep_fallback="match")
-    full_ms = cuda_ms(
-        lambda: repair_cuda.repair_cost_cuda(
-            s64.chains.slab, q64, u64, c64.data, c64.cand_dist,
-            c64.cand_len, c64.corr, **kw), 5)
+    PR = problayout.get_layout(0).PACKED_ROWS
+    M64 = c64.cand_dist.shape[1]
+
+    def repair64(slab_in, q_, u_, **kw_):
+        return repair_cuda.repair_cost_cuda(
+            slab_in, q_, u_, c64.data_u8, c64.cand_dist, c64.cand_len,
+            c64.log2, **kw, **kw_)
+    # the full walk from the initial state (every chain on the seed parse)
+    full_ms = cuda_ms(lambda: repair64(s64.chains.slab, q64, u64), 5)
+    full_out = repair64(s64.chains.slab, q64, u64)
+    full_bytes, full_ops, full_pk = repair_work(
+        s64.chains.slab, q64, full_out[0], 0, M64, PR)
+    full_bound, full_by = bound(full_bytes, full_ops, I32_OPS_PER_S)
     # kernel against plain at n=65536, C=128 on the block's last 8192
     # positions, from the kernel's own snapshot there (the plain pass
     # takes one Python step per position: minutes for the whole block),
     # with the mutation substituted in-pass as on the main path
     start64 = n64 - 8192
-    snap = repair_cuda.repair_cost_cuda(
-        s64.chains.slab, q64, u64, c64.data, c64.cand_dist, c64.cand_len,
-        c64.corr, cap_pos=start64, **kw)
+    snap = repair64(s64.chains.slab, q64, u64, cap_pos=start64)
     part_args = (snap[0], ti(rng.integers(start64, n64, C)),
-                 ti(rng.integers(start64, n64, C)), c64.data,
-                 c64.cand_dist, c64.cand_len)
-    part_kw = dict(kw, start_pos=start64, probs_in=snap[3],
-                   carry_in=snap[8], mut0=mut0, mut1=mut1)
-    got = repair_cuda.repair_cost_cuda(*part_args, c64.corr, **part_kw)
+                 ti(rng.integers(start64, n64, C)))
+    part_kw = dict(start_pos=start64, probs_in=snap[3], carry_in=snap[8],
+                   mut0=mut0, mut1=mut1)
+    got = repair64(*part_args, **part_kw)
     torch.cuda.synchronize()
     t = time.time()
-    want = repair_cuda.repair_cost_plain(*part_args, c64.log2, **part_kw)
+    want = repair_cuda.repair_cost_plain(
+        *part_args, c64.data, c64.cand_dist, c64.cand_len, c64.log2, **kw,
+        **part_kw)
     torch.cuda.synchronize()
     kernels["repair_cost"]["plain_ms"] = (time.time() - t) * 1e3
     d = max_abs_diff(got, want)
@@ -393,8 +459,67 @@ def main() -> int:
     kernels["repair_cost"]["max_abs_err"] = max(
         kernels["repair_cost"]["max_abs_err"], d)
     kernels["repair_cost"]["ms"] = cuda_ms(
-        lambda: repair_cuda.repair_cost_cuda(*part_args, c64.corr,
-                                             **part_kw), 20)
+        lambda: repair64(*part_args, **part_kw), 20)
+    part_bytes, part_ops, part_pk = repair_work(
+        part_args[0], part_args[1], got[0], start64, M64, PR,
+        mut=(mut0, mut1))
+    kernels["repair_cost"]["bound_ms"], kernels["repair_cost"][
+        "bound_by"] = bound(part_bytes, part_ops, I32_OPS_PER_S)
+    say("repair_times", tolerance=0, full_walk_ms=full_ms,
+        full_walk_shape=f"C={C},n={n64},positions=0..{n64}",
+        packets_per_chain_mean=float(full_pk.float().mean()),
+        packets_per_chain_max=int(full_pk.max()),
+        ns_per_packet_per_chain=full_ms * 1e6 / int(full_pk.max()),
+        full_walk_bytes=full_bytes, full_walk_ops=full_ops,
+        full_walk_bound_ms=full_bound, full_walk_bound_by=full_by,
+        partial_ms=kernels["repair_cost"]["ms"],
+        partial_shape=f"C={C},n={n64},positions={start64}..{n64}",
+        partial_packets_per_chain_max=int(part_pk.max()),
+        partial_bytes=part_bytes,
+        partial_bound_ms=kernels["repair_cost"]["bound_ms"],
+        partial_plain_ms=kernels["repair_cost"]["plain_ms"])
+
+    # the same kernel with the block's bytes in device memory: a block
+    # too large for shared memory, the plain version on its last 2048
+    # positions from the kernel's own snapshot
+    nbig, Cg = 262144, 8
+    check(not repair_cuda.staging_plan(nbig, 0).bytes_in_smem,
+          f"a {nbig}-byte block reads its bytes from device memory")
+    cfgg = AnnealConfig(chains=Cg)
+    t = time.time()
+    cg = engine.make_context(corpus[:nbig], cfgg, dev)
+    ctx_s = time.time() - t
+    sg = engine.init_state(cg, cfgg)
+    startg = nbig - 2048
+
+    def repairg(slab_in, q_, u_, **kw_):
+        return repair_cuda.repair_cost_cuda(
+            slab_in, q_, u_, cg.data_u8, cg.cand_dist, cg.cand_len,
+            cg.log2, **kw, **kw_)
+    qg, ug = ti(rng.integers(0, nbig, Cg)), ti(rng.integers(0, nbig, Cg))
+    fullg_ms = cuda_ms(lambda: repairg(sg.chains.slab, qg, ug), 3)
+    snapg = repairg(sg.chains.slab, qg, ug, cap_pos=startg)
+    gargs = (snapg[0], ti(rng.integers(startg, nbig, Cg)),
+             ti(rng.integers(startg, nbig, Cg)))
+    gkw = dict(start_pos=startg, probs_in=snapg[3], carry_in=snapg[8],
+               mut0=mut0[:Cg], mut1=mut1[:Cg])
+    got = repairg(*gargs, **gkw)
+    want = repair_cuda.repair_cost_plain(
+        *gargs, cg.data, cg.cand_dist, cg.cand_len, cg.log2, **kw, **gkw)
+    torch.cuda.synchronize()
+    d = max_abs_diff(got, want)
+    check(d == 0, f"repair kernel, bytes in device memory == plain "
+          f"version (n={nbig}, partial): {d}")
+    kernels["repair_cost"]["max_abs_err"] = max(
+        kernels["repair_cost"]["max_abs_err"], d)
+    fullg_pk = repair_work(sg.chains.slab, qg,
+                           repairg(sg.chains.slab, qg, ug)[0], 0,
+                           cg.cand_dist.shape[1], PR)[2]
+    say("repair_global", n=nbig, C=Cg, tolerance=0, max_abs_err=d,
+        positions=f"{startg}..{nbig}", context_seconds=round(ctx_s, 1),
+        full_walk_ms=fullg_ms, packets_per_chain_max=int(fullg_pk.max()),
+        ns_per_packet_per_chain=fullg_ms * 1e6 / int(fullg_pk.max()))
+
     ch = s64.chains
     cands = moves.enumerate_candidates(
         ch.slab, q64, ch.rec_dists, c64.data, c64.rank, c64.sparse,
@@ -417,15 +542,31 @@ def main() -> int:
         lambda: log2_cuda.log2_probe_cuda(dev))
     kernels["log2_probe"]["plain_ms"] = device_ms(
         lambda: log2_cuda.log2_probe_plain(dev))
-    say("times", tolerance=0, repair_full_walk_ms=round(full_ms, 3),
-        repair_ms=round(kernels["repair_cost"]["ms"], 3),
-        repair_plain_ms=round(kernels["repair_cost"]["plain_ms"], 1),
+    Cr, NC = candp.shape
+    # rank: probabilities, candidates and states in, metrics out; the
+    # probe: 2,048 costs out, each a multiply, a log2, a multiply and a
+    # truncation in float32
+    kernels["rank_candidates"]["bound_ms"], kernels["rank_candidates"][
+        "bound_by"] = bound(Cr * PR * 4 + 2 * Cr * NC * 4 + Cr * 8 * 4
+                            + 128 * 4, OPS_PER_BIT * 26 * Cr * NC,
+                            I32_OPS_PER_S)
+    kernels["log2_probe"]["bound_ms"], kernels["log2_probe"][
+        "bound_by"] = bound(2048 * 4, 4 * 2048, F32_OPS_PER_S)
+    # no single PyTorch call computes any of the three functions
+    for k in kernels.values():
+        k["library_ms"] = None
+    say("times", tolerance=0,
+        repair_ms=kernels["repair_cost"]["ms"],
+        repair_bound_ms=kernels["repair_cost"]["bound_ms"],
+        repair_plain_ms=kernels["repair_cost"]["plain_ms"],
         repair_shape=f"C={C},n={n64},positions={start64}..{n64}",
-        rank_ms=round(kernels["rank_candidates"]["ms"], 4),
-        rank_plain_ms=round(kernels["rank_candidates"]["plain_ms"], 3),
-        rank_shape=f"C={C},NC={candp.shape[1]}",
-        log2_device_ms=round(kernels["log2_probe"]["ms"], 5),
-        log2_plain_device_ms=round(kernels["log2_probe"]["plain_ms"], 5))
+        rank_ms=kernels["rank_candidates"]["ms"],
+        rank_bound_ms=kernels["rank_candidates"]["bound_ms"],
+        rank_plain_ms=kernels["rank_candidates"]["plain_ms"],
+        rank_shape=f"C={Cr},NC={NC}",
+        log2_device_ms=kernels["log2_probe"]["ms"],
+        log2_bound_ms=kernels["log2_probe"]["bound_ms"],
+        log2_plain_device_ms=kernels["log2_probe"]["plain_ms"])
 
     def reset():
         for k in kernels.values():
@@ -553,7 +694,9 @@ def main() -> int:
     rows = [{"name": name, "route": "cuda", "source": k["source"],
              "replaces": k["replaces"], "launches": launches[name],
              "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-             "plain_ms": k["plain_ms"]} for name, k in kernels.items()]
+             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+             "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+            for name, k in kernels.items()]
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

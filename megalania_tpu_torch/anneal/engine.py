@@ -52,13 +52,14 @@ from .config import AnnealConfig
 class BlockContext(NamedTuple):
     """Per-block read-only tensors, shared by all chains."""
     data: torch.Tensor        # int32[n]
+    data_u8: torch.Tensor     # uint8[n] the same bytes (repair kernel)
     rank: torch.Tensor        # int32[n]
     sparse: torch.Tensor      # int32[K, n]
     cand_dist: torch.Tensor   # int32[n, M]
     cand_len: torch.Tensor    # int32[n, M]
     cand_count: torch.Tensor  # int32[n]
     log2: torch.Tensor        # int32[2048] exact cost table
-    corr: torch.Tensor        # int32[128] log2 correction (this device's)
+    corr: torch.Tensor        # int32[128] log2 correction (rank kernel)
     f2p: torch.Tensor         # int32[PROBS_PAD] flat->packed slot map
     init_slab: torch.Tensor   # int32[n] initial parse (cfg.init)
     device: torch.device
@@ -147,7 +148,7 @@ def make_context(data: bytes, cfg: AnnealConfig, device) -> BlockContext:
 
 def context_from_numpy(*, data, rank, sparse, cand_dist, cand_len,
                        cand_count, init_slab, lc: int = 0,
-                       device="cpu") -> BlockContext:
+                       device="cuda") -> BlockContext:
     """A BlockContext on `device` from the reference's BlockContext
     fields as numpy arrays (init_slab as uint32).  The log2 correction is
     always built by `device`'s own probe."""
@@ -157,7 +158,9 @@ def context_from_numpy(*, data, rank, sparse, cand_dist, cand_len,
         return torch.as_tensor(np.array(a, np.int32),
                                device=device)
     return BlockContext(
-        data=t(data), rank=t(rank), sparse=t(sparse),
+        data=t(data),
+        data_u8=torch.as_tensor(np.array(data, np.uint8), device=device),
+        rank=t(rank), sparse=t(sparse),
         cand_dist=t(cand_dist), cand_len=t(cand_len),
         cand_count=t(cand_count), log2=t(T.LOG2_TABLE_I32),
         corr=log2_cuda.log2_correction(device),
@@ -167,8 +170,8 @@ def context_from_numpy(*, data, rank, sparse, cand_dist, cand_len,
 
 def _repair_cost(slabs, q, u, ctx: BlockContext, cfg: AnnealConfig, **kw):
     return repair_cuda.repair_cost(
-        slabs, q, u, ctx.data, ctx.cand_dist, ctx.cand_len, ctx.log2,
-        ctx.corr, site_mode=cfg.site_mode, lrep_fallback=cfg.lrep_fallback,
+        slabs, q, u, ctx.data, ctx.data_u8, ctx.cand_dist, ctx.cand_len,
+        ctx.log2, site_mode=cfg.site_mode, lrep_fallback=cfg.lrep_fallback,
         lc=cfg.lc, **kw)
 
 

@@ -1,7 +1,8 @@
 // Device code shared by the three kernels (log2_probe.cu, repair.cu,
 // rank.cu): packet unpack/pack, the 26-slot bit plan (with the 8 literal
 // bits and the matched-literal rule), the ctx and rep-stack transitions,
-// the float32 log2 cost and its 2-bit exactness correction.
+// the float32 log2 cost and its 2-bit exactness correction (the probe and
+// the rank kernel; the repair kernel reads the exact table instead).
 //
 // Probabilities are addressed in the class-packed layout of
 // megalania_tpu_torch/ops/problayout.py: a slot's row is the first row of
@@ -50,8 +51,8 @@ __device__ __forceinline__ uint32_t pack_live(const Packet& p) {
 }
 
 // trunc(-log2(pc / 2048) * 2048) in float32 for pc in 1..2047.  Never
-// inlined: the probe and the kernels run one and the same instruction
-// sequence, so the probe's correction is exact for the kernels by
+// inlined: the probe and the rank kernel run one and the same instruction
+// sequence, so the probe's correction is exact for the rank kernel by
 // construction.  (Built without --use_fast_math.)
 static __device__ __noinline__ int f32_log2_cost(int pc) {
   const float x = float(pc) * (1.0f / 2048.0f);
@@ -74,26 +75,25 @@ __device__ __forceinline__ int adapt(int p, int bit) {
   return bit ? p - (p >> kMoveBits) : p + ((kProbOne - p) >> kMoveBits);
 }
 
+// (Both transitions are written as selects: the repair kernel's walker
+// runs them on every packet, and a branch per type costs it more.)
 __device__ __forceinline__ int ctx_next(int ctx, int type) {
-  switch (type) {
-    case kLit: return ctx < 4 ? 0 : (ctx < 10 ? ctx - 3 : ctx - 6);
-    case kMatch: return ctx < 7 ? 7 : 10;
-    case kSrep: return ctx < 7 ? 9 : 11;
-    default: return ctx < 7 ? 8 : 11;
-  }
+  const int lit = ctx < 4 ? 0 : (ctx < 10 ? ctx - 3 : ctx - 6);
+  const int lo = type == kMatch ? 7 : (type == kSrep ? 9 : 8);
+  const int hi = type == kMatch ? 10 : 11;
+  return type == kLit ? lit : (ctx < 7 ? lo : hi);
 }
 
 // rep-stack update: MATCH pushes, LREP promotes entry `dist`, LIT/SREP
 // keep the stack
 __device__ __forceinline__ void dists_next(int d[4], int type, int dist) {
-  if (type == kMatch) {
-    d[3] = d[2]; d[2] = d[1]; d[1] = d[0]; d[0] = dist;
-  } else if (type == kLrep) {
-    const int k = min(max(dist, 0), 3);
-    const int dk = d[k];
-    for (int j = k; j > 0; --j) d[j] = d[j - 1];
-    d[0] = dk;
-  }
+  const bool m = type == kMatch, l = type == kLrep;
+  const int k = min(max(dist, 0), 3);
+  const int dk = k == 0 ? d[0] : k == 1 ? d[1] : k == 2 ? d[2] : d[3];
+  d[3] = (m || (l && k >= 3)) ? d[2] : d[3];
+  d[2] = (m || (l && k >= 2)) ? d[1] : d[2];
+  d[1] = (m || (l && k >= 1)) ? d[0] : d[1];
+  d[0] = m ? dist : (l ? dk : d[0]);
 }
 
 // Everything the slots of one packet read.
@@ -200,18 +200,8 @@ __device__ __forceinline__ bool plan_slot(const PlanCtx& c, int j,
   return true;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
+__device__ __forceinline__ long long warp_sum64(long long v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFullMask, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_min(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFullMask, v, o));
   return v;
 }
 

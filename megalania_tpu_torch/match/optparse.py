@@ -5,7 +5,7 @@ The reference can only seed annealing from the all-literals parse
 parse: a rep-aware Viterbi DP over the dense candidate table with LZMA
 price tables from trained probabilities — the approach of xz's optimum
 encoder, re-derived for the candidate-table representation.  The DP runs
-in the native engine (megalania_tpu/runtime/native/optparse.cpp, built
+in the native engine (megalania_tpu_torch/native/optparse.cpp, built
 into the port's build directory); seeding at xz-class quality turns the
 annealer into a strict refiner.
 
@@ -86,7 +86,7 @@ def seed_slab(data, cfg, index=None, wide: bool = False):
 
     Returns (slab, dists): dists is the full-width distance array of a
     wide (> 1 MiB) block, None otherwise.  The native library is built
-    from megalania_tpu/runtime/native/optparse.cpp on first use; a failed
+    from megalania_tpu_torch/native/optparse.cpp on first use; a failed
     build raises."""
     data = np.frombuffer(bytes(data), np.uint8) if isinstance(
         data, (bytes, bytearray)) else np.asarray(data, np.uint8)

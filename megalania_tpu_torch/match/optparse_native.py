@@ -1,6 +1,6 @@
 """ctypes bindings for the native optimum-parse engine.
 
-The C++ library (megalania_tpu/runtime/native/optparse.cpp, compiled
+The C++ library (megalania_tpu_torch/native/optparse.cpp, compiled
 into the port's build directory by runtime/build.py) implements the
 rep-aware exact-ctx-state Viterbi DP and the exact adaptive cost/train
 pass; this module owns the layout contract (offset vector from

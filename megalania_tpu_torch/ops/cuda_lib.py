@@ -20,7 +20,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "meg_log2_probe": [_P, _P],
-    "meg_repair": [_P] * 17 + [_I] * 7 + [_P, _P],
+    "meg_repair": [_P] * 17 + [_I] * 9 + [_P, _P],
     "meg_rank": [_P] * 5 + [_I] * 4 + [_P, _P],
 }
 

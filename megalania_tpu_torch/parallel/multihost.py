@@ -21,7 +21,7 @@ _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
 
 
-def initialize(device="cpu") -> int:
+def initialize(device="cuda") -> int:
     """Join the process group torchrun describes in the environment
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) and return
     this rank; return 0 and do nothing when it is absent.  The backend

@@ -8,11 +8,13 @@ and flags, so a stale build is never loaded:
     shared header) compiled by nvcc for sm_90a into ONE shared library
     with a plain C interface, loaded with ctypes (no PyTorch headers, so
     the build takes seconds);
-  * the host engines `megalania_tpu/runtime/native/{optparse,emitter}.cpp`,
-    read in place (never copied or edited) and compiled by g++.
+  * the host engines `megalania_tpu_torch/native/{optparse,emitter}.cpp`
+    compiled by g++.  Their code is the reference's `runtime/native`
+    sources line for line, known defects included (the parity tests hold
+    them against the reference's own build); only comments differ.  The
+    port reads no file of the reference package.
 
-The committed `.so` files beside the C++ sources are never loaded.  A
-failed build raises: nothing falls back to another implementation.
+A failed build raises: nothing falls back to another implementation.
 Importing this module builds nothing.
 """
 from __future__ import annotations
@@ -29,10 +31,9 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
-NATIVE_SRC = os.path.join(os.path.dirname(_PKG), "megalania_tpu", "runtime",
-                          "native")
+NATIVE_SRC = os.path.join(_PKG, "native")
 
-# no --use_fast_math: the log2 probe and the kernels must run the exact
+# no --use_fast_math: the log2 probe and the rank kernel must run the exact
 # float32 log2 sequence the correction table was built from
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -80,11 +81,13 @@ def _nvcc() -> str:
 
 
 @functools.cache
-def cuda_lib_path() -> str:
-    """Build (once per source hash) the CUDA kernel library; its path."""
+def cuda_lib_path(defines: tuple = ()) -> str:
+    """Build (once per source hash and macro set) the CUDA kernel library;
+    its path.  `defines` are preprocessor macros (a profiling build)."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     inputs = sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-    return _build("libmeg_cuda", [_nvcc()] + NVCC_FLAGS, sources, inputs)
+    cmd = [_nvcc()] + NVCC_FLAGS + [f"-D{d}" for d in defines]
+    return _build("libmeg_cuda", cmd, sources, inputs)
 
 
 @functools.cache
@@ -94,7 +97,7 @@ def cuda_lib() -> ctypes.CDLL:
 
 @functools.cache
 def host_lib(name: str) -> ctypes.CDLL:
-    """The g++ build of megalania_tpu/runtime/native/<name>.cpp
+    """The g++ build of megalania_tpu_torch/native/<name>.cpp
     (name: "optparse" or "emitter")."""
     src = os.path.join(NATIVE_SRC, f"{name}.cpp")
     cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"

@@ -2,7 +2,7 @@
 
 The op stream comes from ops/emit_plan.py (the bit plan is the single
 source of truth for bit order); the C++ range coder,
-megalania_tpu/runtime/native/emitter.cpp built into the port's build
+megalania_tpu_torch/native/emitter.cpp built into the port's build
 directory, only replays it.  A failed build raises: the port has no
 fallback emitter: runtime/pyemit.py is the test oracle, and the emitter
 of wide blocks only (see emit).

@@ -79,8 +79,8 @@ def test_repair_kernel_matches_plain(dev, ctx, kw):
         q[0] = n - 1
         kw["mut0"] = slabs[:, 3].contiguous()
         kw["mut1"] = slabs[:, 7].contiguous()
-    got = repair_cuda.repair_cost_cuda(slabs, q, u, c.data, c.cand_dist,
-                                       c.cand_len, c.corr, **kw)
+    got = repair_cuda.repair_cost_cuda(slabs, q, u, c.data_u8, c.cand_dist,
+                                       c.cand_len, c.log2, **kw)
     want = repair_cuda.repair_cost_plain(slabs, q, u, c.data, c.cand_dist,
                                          c.cand_len, c.log2, **kw)
     _same(got, want)

@@ -14,6 +14,7 @@ from megalania_tpu.ops import pallas_repair2, repair_scan as JR
 from megalania_tpu.ops import problayout as JPL
 from megalania_tpu_torch.anneal import engine as TE
 from megalania_tpu_torch.models import packets as TP
+from megalania_tpu_torch.ops import bitplan as TB
 from megalania_tpu_torch.ops import log2_cuda, repair_cuda, tables as TT
 
 DATA = (b"abra cadabra abra cadabra! abracadabra? "
@@ -204,3 +205,64 @@ def test_correction_makes_float32_exact():
     # the plain probe is the table itself: an all-zero correction
     plain = log2_cuda.log2_probe_plain("cpu").numpy()
     assert (log2_cuda.build_correction(plain) == 0x55555555).all()
+
+
+def test_dispatch_on_cpu_is_the_plain_version(ctxs, rng):
+    """repair_cost with cpu tensors is repair_cost_plain; the context's
+    uint8 copy holds the block's bytes."""
+    _, t, _ = ctxs
+    assert t.data_u8.dtype == torch.uint8
+    assert bytes(t.data_u8.numpy()) == DATA
+    assert torch.equal(t.data_u8.to(torch.int32), t.data)
+    slabs, q, u = _mutated(t, rng)
+    got = repair_cuda.repair_cost(
+        TP.from_u32(slabs), _i32(q), _i32(u), t.data, t.data_u8,
+        t.cand_dist, t.cand_len, t.log2, lrep_fallback="match")
+    want = _port(t, slabs, q, u, lrep_fallback="match")
+    for name, g, w in zip(NAMES, _np(got), _np(want)):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("lc", range(5))
+@pytest.mark.parametrize("n", [2048, 65536, 1 << 20])
+def test_staging_plan(n, lc):
+    """The repair kernel's shared memory never exceeds what an H100
+    block may hold; the bytes move into shared memory whenever they
+    fit, so the main path's 64 KiB block (lc=0) reads them there."""
+    plan = repair_cuda.staging_plan(n, lc)
+    assert 0 < plan.smem_bytes <= repair_cuda.SMEM_LIMIT == 232_448
+    fixed = repair_cuda.staging_plan(0, lc).smem_bytes
+    assert plan.bytes_in_smem == (fixed + n <= repair_cuda.SMEM_LIMIT)
+    assert plan.smem_bytes == fixed + (n if plan.bytes_in_smem else 0)
+    if n <= 65536:
+        assert plan.bytes_in_smem
+    if n == 1 << 20:
+        assert not plan.bytes_in_smem
+
+
+@pytest.mark.parametrize("lc", [0, 3])
+def test_each_probability_row_has_one_slot(rng, lc):
+    """The repair kernel's coster gives bit-plan slot j to lane j and
+    updates probabilities with no synchronisation between lanes, which
+    is right only if no row is reached from two slots: checked over
+    random packets of every type and state."""
+    k = 40000
+    ptype = torch.as_tensor(rng.integers(0, 4, k), dtype=torch.int32)
+    dist = torch.as_tensor(np.where(
+        ptype.numpy() == TP.LREP, rng.integers(0, 4, k),
+        rng.integers(0, 1 << 20, k) >> rng.integers(0, 20, k)),
+        dtype=torch.int32)
+    length = torch.as_tensor(rng.integers(2, 274, k), dtype=torch.int32)
+    ctx = torch.as_tensor(rng.integers(0, 12, k), dtype=torch.int32)
+    dists = torch.as_tensor(rng.integers(0, 1 << 16, (k, 4)),
+                            dtype=torch.int32)
+    b = [torch.as_tensor(rng.integers(0, 256, k), dtype=torch.int32)
+         for _ in range(3)]
+    plan = TB.make_bit_plan(ptype, dist, length, ctx, dists, b[0], b[1],
+                            prev_byte=b[2], lc=lc)
+    slot = torch.arange(plan.idx.shape[1]).expand_as(plan.idx)
+    idx, owner = plan.idx[plan.active], slot[plan.active]
+    first = torch.full((int(idx.max()) + 1,), -1, dtype=torch.long)
+    first[idx.long()] = owner
+    assert torch.equal(first[idx.long()], owner)
+    assert len(torch.unique(owner)) == plan.idx.shape[1]

@@ -10,15 +10,25 @@ again under torch.profiler.
 Prints the card (nvidia-smi name and power limit), the wall time per
 iteration without the profiler, the device time per iteration (the sum
 of the kernels' own durations in the profiled window), the device busy
-share (device time over unprofiled wall time) and the top operators by
-device time.  The timing and the trace go through the library's own
-hooks (megalania_tpu_torch/utils/profiling.py): step_timer for the
-unprofiled window, trace for the profiled one, whose chrome trace is
-written to DIR/trace.json.
+share (device time over unprofiled wall time), the repair kernel's
+device time and share, and the top operators by device time.  The
+timing and the trace go through the library's own hooks
+(megalania_tpu_torch/utils/profiling.py): step_timer for the unprofiled
+window, trace for the profiled one, whose chrome trace is written to
+DIR/trace.json.
+
+Last, where the repair kernel's full walk of the same block spends its
+cycles, role by role: the kernel library is rebuilt with
+MEG_REPAIR_PROFILE (csrc/repair.cu: each role counts its cycles and the
+cycles it waits for the other, and the waits spin so that no wait hides
+inside a suspended try_wait), and the walk is timed again.  The role
+that waits least bounds the walk.  That build is for this count only: its
+spinning waits and counters make it no yardstick of speed.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import subprocess
 import sys
@@ -67,16 +77,76 @@ def main() -> int:
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
         / args.iters
     launches = sum(e.count for e in kernels) / args.iters
+    repair = [e for e in kernels if "repair_kernel" in e.key]
+    repair_ms = sum(e.self_device_time_total for e in repair) / 1e3 \
+        / args.iters
     print(f"card: {smi}")
     print(f"iterations={args.iters} wall_ms_per_iter={wall_ms:.3f} "
           f"moves_per_s={cfg.chains * 1e3 / wall_ms:.1f} "
           f"device_ms_per_iter={dev_ms:.3f} "
           f"device_busy_share={dev_ms / wall_ms:.4f} "
           f"kernel_launches_per_iter={launches:.1f}")
+    print(f"repair_kernel_ms_per_iter={repair_ms:.3f} "
+          f"repair_share_of_device={repair_ms / dev_ms:.4f} "
+          f"repair_launches_per_iter="
+          f"{sum(e.count for e in repair) / args.iters:.1f}")
     print(events.table(sort_by="self_device_time_total", row_limit=15,
                        max_name_column_width=60))
     print(f"trace: {os.path.join(args.trace_dir, 'trace.json')}")
+    repair_roles(ctx, state.chains.slab)
     return 0
+
+
+def repair_roles(ctx, slab, reps: int = 5):
+    """The repair kernel's full walk of `slab` from a profiling build:
+    per packet per chain, each role's busy and waiting cycles (walker,
+    coster, and the first of the two planners, which plans every other
+    packet)."""
+    import numpy as np
+    import torch
+    from megalania_tpu_torch.ops import cuda_lib, repair_cuda
+    from megalania_tpu_torch.runtime import build
+    so = ctypes.CDLL(build.cuda_lib_path(("MEG_REPAIR_PROFILE",)))
+    for name, argtypes in cuda_lib._SIGNATURES.items():
+        getattr(so, name).argtypes = argtypes
+        getattr(so, name).restype = ctypes.c_int
+    so.meg_repair_profile.argtypes = [ctypes.c_void_p]
+    cuda_lib.lib = lambda: so          # the wrappers launch this build
+    C, n = slab.shape
+    rng = np.random.default_rng(1673551)
+    q, u = (torch.as_tensor(rng.integers(0, n, C), dtype=torch.int32,
+                            device=slab.device) for _ in range(2))
+
+    def walk():
+        return repair_cuda.repair_cost_cuda(
+            slab, q, u, ctx.data_u8, ctx.cand_dist, ctx.cand_len, ctx.log2,
+            lrep_fallback="match")
+    walk()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        walk()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / reps
+    prof = np.zeros((1024, 7), np.uint64)
+    if so.meg_repair_profile(prof.ctypes.data) != 0:
+        raise RuntimeError("reading the repair profile counters failed")
+    w_tot, w_wait, c_tot, c_wait, recs, p_tot, p_wait = \
+        prof[:C].astype(np.float64).T
+    print(f"repair_full_walk_profiling_build_ms={ms:.3f} C={C} n={n} "
+          f"records_per_chain={recs.mean():.1f} "
+          f"clock_ghz~{w_tot.mean() / ms / 1e6:.3f}")
+    print("walker_busy_cycles_per_packet="
+          f"{((w_tot - w_wait) / recs).mean():.1f} "
+          f"walker_wait_cycles_per_packet={(w_wait / recs).mean():.1f} "
+          "coster_busy_cycles_per_packet="
+          f"{((c_tot - c_wait) / recs).mean():.1f} "
+          f"coster_wait_cycles_per_packet={(c_wait / recs).mean():.1f} "
+          "planner_busy_cycles_per_packet="
+          f"{((p_tot - p_wait) / recs).mean():.1f} "
+          f"planner_wait_cycles_per_packet={(p_wait / recs).mean():.1f}")
 
 
 if __name__ == "__main__":
