@@ -7,12 +7,14 @@ Builds the port's CUDA kernels from this checkout (and prints ptxas's
 registers per kernel), holds each against its plain PyTorch version on
 the card, runs the engine on cuda and on cpu and compares the states,
 then compresses a real 64 KiB block through the port's CLI with 128
-chains and checks the output.  Phase 8 times the kernels at the main
-path's shapes beside their bounds (bytes over the HBM rate, or
-operations over their peak, from this run's inputs), times the repair
-kernel's full walk per packet, and holds the repair kernel with the
-block's bytes in device memory (a 256 KiB block) against its plain
-version.  Later phases drive
+chains and checks the output.  Phase 8 holds the proposal kernel against
+its plain version at the main path's first state and times the kernels
+at the main path's shapes: each kernel's own device time (the
+profiler's kernel durations) and its wrapper's call time, beside their
+bounds (bytes over the HBM rate, or operations over their peak, from
+this run's inputs); it also times the repair kernel's full walk per
+packet, and holds the repair kernel with the block's bytes in device
+memory (a 256 KiB block) against its plain version.  Later phases drive
 the other paths on the card: an interrupted and resumed 64 KiB block
 against the uninterrupted one, the whole-parse cost (scan_cost) against
 the native cost, and the chain-sharded anneal over a one-rank NCCL group
@@ -46,6 +48,9 @@ F32_OPS_PER_S = 67e12
 I32_OPS_PER_S = 33.5e12
 # integer operations per coded bit: the cost lookup, the sum, the adapt
 OPS_PER_BIT = 3
+# integer operations per threefry2x32 hash: 20 rounds of an add, a
+# rotate and a xor, and 5 key injections of 3 adds each
+OPS_PER_HASH = 20 * 3 + 5 * 3
 CORPUS = os.path.join(ROOT, "tools", "corpus", "libc.so")
 WORK = os.path.join(ROOT, "megalania_tpu_torch", "_build", "smoke")
 
@@ -75,11 +80,13 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps: int = 100, windows: int = 5) -> float:
+def device_ms(fn, reps: int = 100, windows: int = 5,
+              kernel: str = "") -> float:
     """Device milliseconds per call of fn(): the median over `windows`
     torch.profiler windows of `reps` calls each, of the summed device
-    durations (kernels and copies) the profiler records.  Unlike
-    cuda_ms, the host's time between launches is not counted."""
+    durations the profiler records (kernels and copies; with `kernel`,
+    only the kernels whose name holds it).  Unlike cuda_ms, the host's
+    time between launches is not counted."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -92,7 +99,7 @@ def device_ms(fn, reps: int = 100, windows: int = 5) -> float:
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+                 if e.device_type == DeviceType.CUDA and kernel in e.key)
         per_call.append(us / 1e3 / reps)
     check(min(per_call) > 0, "the profiler recorded device time")
     return statistics.median(per_call)
@@ -141,16 +148,63 @@ def repair_work(slab_in, q, out, start: int, M: int, PR: int, mut=None):
     return nbytes, OPS_PER_BIT * 26 * int(packets.sum()), packets
 
 
-def max_abs_diff(got, want) -> int:
+def propose_work(C: int, Pn: int, NC: int, M: int, PR: int):
+    """What one proposal launch must move and do: (bytes, operations).
+    Read once: the chains' probabilities, keys, sites, ctx, rep stacks
+    and live counts, the shared key, the two slab cells of each row, the
+    Pareto row and count at each site, the LCE gathers of the four long
+    reps (the site's rank, each source's rank, two sparse-table words),
+    four data bytes per site, the log2 correction.  Written once: the
+    next keys, the two cells, the site and the metric row of each row,
+    the acceptance draw of each chain, the next shared key.  Operations:
+    OPS_PER_BIT for each of the 26 slots of every candidate, and
+    OPS_PER_HASH for each threefry hash (5 per chain, 30 per row, 2 more
+    per row with proposals, 1 shared)."""
+    rows = C * Pn
+    nbytes = (C * PR * 4 + C * 16 + 16 + C * (3 + 4) * 4 + rows * 2 * 4
+              + C * (2 * M + 1) * 4 + C * (1 + 4 + 8) * 4 + C * 4 * 4
+              + 128 * 4
+              + C * 16 + 16 + rows * 3 * 4 + C * 4 + rows * NC * 4)
+    hashes = 5 * C + rows * (30 + 2 * (Pn > 1)) + 1
+    return nbytes, OPS_PER_BIT * 26 * rows * NC + OPS_PER_HASH * hashes
+
+
+def propose_args(ctx, state, q, cfg, rec=None, **site):
+    """(args, keywords) of the proposal stage for the chains of an engine
+    state at sites q (rec: their (rec_ctx, rec_dists), else the
+    state's)."""
+    ch = state.chains
+    rec_ctx, rec_dists = rec if rec is not None else (ch.rec_ctx,
+                                                      ch.rec_dists)
+    return ((ch.key, state.skey, ch.slab, q, rec_ctx, rec_dists,
+             ch.rank_probs, ch.live_count, ctx),
+            dict(proposals=cfg.proposals, top_k=cfg.top_k,
+                 sublens=cfg.sublens, lc=cfg.lc, **site))
+
+
+def propose_both(*a, **kw):
+    """The proposal kernel's and its plain version's outputs on the same
+    CUDA tensors (propose_args' arguments)."""
+    import torch
+    from megalania_tpu_torch.ops import propose_cuda
+    args, pkw = propose_args(*a, **kw)
+    got = propose_cuda.propose_cuda(*args, **pkw)
+    want = propose_cuda.propose_plain(*args, **pkw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def max_abs_diff(got, want):
     """Largest |difference| over matching output tuples (exact: 0)."""
     import torch
     worst = 0
     for g, w in zip(got, want):
-        g = g.detach().to("cpu", torch.int64)
-        w = w.detach().to("cpu", torch.int64)
+        as_ = torch.float64 if g.is_floating_point() else torch.int64
+        g = g.detach().to("cpu", as_)
+        w = w.detach().to("cpu", as_)
         check(g.shape == w.shape, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
         if g.numel():
-            worst = max(worst, int((g - w).abs().max()))
+            worst = max(worst, (g - w).abs().max().item())
     return worst
 
 
@@ -162,12 +216,13 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device available")
     sys.path.insert(0, ROOT)
     from megalania_tpu_torch import cli, compressor
-    from megalania_tpu_torch.anneal import engine, moves
+    from megalania_tpu_torch.anneal import engine
     from megalania_tpu_torch.anneal.config import AnnealConfig
     from megalania_tpu_torch.match import optparse_native
     from megalania_tpu_torch.models import packets as P
-    from megalania_tpu_torch.ops import (log2_cuda, problayout, rank_cuda,
-                                         repair_cuda, tables as T)
+    from megalania_tpu_torch.ops import (log2_cuda, problayout,
+                                         propose_cuda, repair_cuda,
+                                         tables as T)
     from megalania_tpu_torch.runtime import build
 
     os.makedirs(WORK, exist_ok=True)
@@ -181,9 +236,9 @@ def main() -> int:
         "repair_cost": dict(source="megalania_tpu_torch/csrc/repair.cu",
                             replaces="megalania_tpu/ops/pallas_repair2.py:206",
                             fn=repair_cuda.repair_cost_cuda),
-        "rank_candidates": dict(source="megalania_tpu_torch/csrc/rank.cu",
-                                replaces="megalania_tpu/ops/pallas_rank.py:57",
-                                fn=rank_cuda.rank_cuda),
+        "propose": dict(source="megalania_tpu_torch/csrc/propose.cu",
+                        replaces="megalania_tpu/ops/pallas_rank.py:57",
+                        fn=propose_cuda.propose_cuda),
     }
 
     # ---- 1. device ---------------------------------------------------
@@ -206,7 +261,8 @@ def main() -> int:
                          r"Compile time", ptxas, re.S)
     names = (("repair_kernelILb1E", "repair_kernel<bytes in smem>"),
              ("repair_kernelILb0E", "repair_kernel<bytes in global>"),
-             ("rank_kernel", "rank_kernel"), ("probe", "log2_probe_kernel"))
+             ("propose_kernel", "propose_kernel"),
+             ("probe", "log2_probe_kernel"))
     regs = {next((nm for key, nm in names if key in e), e): " ".join(
         re.sub(r"ptxas info\s*:|Function properties for \w+", "",
                txt).split()) for e, txt in entries}
@@ -311,24 +367,33 @@ def main() -> int:
         cost_bytes_chain0=round(18 + (int(want1[1][0]) * 65536
                                       + int(want1[2][0])) / 16384.0, 2))
 
-    # ---- 5. rank kernel vs its plain version -------------------------
-    probs = got1[3]
-    qs = ti(rng.integers(0, n, C))
-    rec_ctx = ti(rng.integers(0, 12, C))
-    rec_dists = ti(np.sort(rng.integers(0, n - 1, (C, 4)), axis=1))
-    cands = moves.enumerate_candidates(
-        slabs_t, qs, rec_dists, ctx.data, ctx.rank, ctx.sparse,
-        ctx.cand_dist, ctx.cand_len, ctx.cand_count)
-    candp = moves.pack_candidates(cands).contiguous()
-    rank_args = (probs, candp, rec_ctx, rec_dists,
-                 *moves.site_bytes(ctx.data, qs, rec_dists))
-    got = rank_cuda.rank_cuda(*rank_args, ctx.corr)
-    want = rank_cuda.rank_plain(*rank_args)
-    d = max_abs_diff([got], [want])
-    check(d == 0, f"rank kernel == plain version: {d}")
-    kernels["rank_candidates"]["max_abs_err"] = d
-    say("rank", C=C, NC=candp.shape[1], tolerance=0, max_abs_err=d,
-        valid=int((want < rank_cuda.BIG).sum()))
+    # ---- 5. proposal kernel vs its plain version ---------------------
+    # C=8 chains of the 2 KiB block at lc=3 with two proposals each: the
+    # initial state, the same with uniform probabilities (tied metrics)
+    # and the state after three iterations, at each kind of site
+    cfg5 = AnnealConfig(chains=8, lc=3, proposals=2, iters_per_epoch=4)
+    s5 = engine.init_state(lc_ctx, cfg5)
+    states5 = {
+        "init": s5,
+        "uniform": s5._replace(chains=s5.chains._replace(
+            rank_probs=torch.full_like(s5.chains.rank_probs, T.PROB_INIT))),
+        "iterated": engine.run_iters(s5, lc_ctx, cfg5, 3)}
+    q5 = ti(rng.integers(0, n, 8))
+    q5[0], q5[1] = n - 1, 0
+    sites5 = {"sweep": dict(u_lo=512, span=256), "byte": dict(span=n),
+              "packet": dict(span=None)}
+    worst = 0
+    for sname, st in states5.items():
+        for site_name, site in sites5.items():
+            got, want = propose_both(lc_ctx, st, q5, cfg5, **site)
+            d = max_abs_diff(got, want)
+            check(d == 0, f"proposal kernel == plain version ({sname}, "
+                  f"{site_name}): {d}")
+            worst = max(worst, d)
+    kernels["propose"]["max_abs_err"] = worst
+    say("propose", n=n, C=8, proposals=2, lc=3, NC=want[6].shape[1],
+        cases=len(states5) * len(sites5), tolerance=0, max_abs_err=worst,
+        valid=int((want[6] < propose_cuda.BIG).sum()))
 
     # ---- 6. slice parity: the engine on cuda == on cpu ---------------
     cfg6 = AnnealConfig(chains=C, iters_per_epoch=4)
@@ -406,6 +471,8 @@ def main() -> int:
           f"2 KiB: |len(out) - predicted| < 2.5 ({len2} vs {pred2})")
     for name, cnt in launches.items():
         check(cnt > 0, f"{name} launched on the main path ({cnt})")
+    check(launches["propose"] == total_moves // C,
+          f"one proposal launch per iteration ({launches['propose']})")
     check(moves_done == total_moves, f"moves {moves_done} == {total_moves}")
     say("main_path", bytes_in=len(data), bytes_out=len(blob),
         dp_only_bytes=dp_len, predicted=predicted,
@@ -458,7 +525,10 @@ def main() -> int:
     check(d == 0, f"repair kernel == plain version (n={n64}, partial): {d}")
     kernels["repair_cost"]["max_abs_err"] = max(
         kernels["repair_cost"]["max_abs_err"], d)
-    kernels["repair_cost"]["ms"] = cuda_ms(
+    kernels["repair_cost"]["ms"] = device_ms(
+        lambda: repair64(*part_args, **part_kw), 20, 3,
+        kernel="repair_kernel")
+    kernels["repair_cost"]["call_ms"] = cuda_ms(
         lambda: repair64(*part_args, **part_kw), 20)
     part_bytes, part_ops, part_pk = repair_work(
         part_args[0], part_args[1], got[0], start64, M64, PR,
@@ -520,51 +590,61 @@ def main() -> int:
         full_walk_ms=fullg_ms, packets_per_chain_max=int(fullg_pk.max()),
         ns_per_packet_per_chain=fullg_ms * 1e6 / int(fullg_pk.max()))
 
+    # the proposal stage of the main path's first iteration: the fresh
+    # state, a fresh sweep (sites and stack from the zero carry where a
+    # chain's recorded site ran off the end), stratum 0
     ch = s64.chains
-    cands = moves.enumerate_candidates(
-        ch.slab, q64, ch.rec_dists, c64.data, c64.rank, c64.sparse,
-        c64.cand_dist, c64.cand_len, c64.cand_count)
-    candp = moves.pack_candidates(cands).contiguous()
-    rank_args = (ch.rank_probs, candp, ch.rec_ctx, ch.rec_dists,
-                 *moves.site_bytes(c64.data, q64, ch.rec_dists))
-    d = max_abs_diff([rank_cuda.rank_cuda(*rank_args, c64.corr)],
-                     [rank_cuda.rank_plain(*rank_args)])
-    check(d == 0, f"rank kernel == plain version (n={n64}): {d}")
-    kernels["rank_candidates"]["max_abs_err"] = max(
-        kernels["rank_candidates"]["max_abs_err"], d)
-    kernels["rank_candidates"]["ms"] = cuda_ms(
-        lambda: rank_cuda.rank_cuda(*rank_args, c64.corr), 50)
-    kernels["rank_candidates"]["plain_ms"] = cuda_ms(
-        lambda: rank_cuda.rank_plain(*rank_args), 10)
-    # the probe's work is a few microseconds of device time: time it from
-    # the profiler's device rows (the host's launch path is not its cost)
+    fresh = ch.rec_live >= n64
+    q8 = torch.where(fresh, 0, ch.rec_live)
+    rec8 = (torch.where(fresh, 0, ch.rec_ctx),
+            torch.where(fresh[:, None], 0, ch.rec_dists))
+    tile64 = engine.choose_tile(n64, cfg8.chain_block, cfg8.lc)
+    pargs, pkw = propose_args(c64, s64, q8, cfg8, rec=rec8, u_lo=0,
+                              span=tile64)
+    got, want = propose_both(c64, s64, q8, cfg8, rec=rec8, u_lo=0,
+                             span=tile64)
+    d = max_abs_diff(got, want)
+    check(d == 0, f"proposal kernel == plain version (n={n64}, C={C}): {d}")
+    kernels["propose"]["max_abs_err"] = max(
+        kernels["propose"]["max_abs_err"], d)
+    kernels["propose"]["ms"] = device_ms(
+        lambda: propose_cuda.propose_cuda(*pargs, **pkw),
+        kernel="propose_kernel")
+    kernels["propose"]["call_ms"] = cuda_ms(
+        lambda: propose_cuda.propose_cuda(*pargs, **pkw), 50)
+    kernels["propose"]["plain_ms"] = cuda_ms(
+        lambda: propose_cuda.propose_plain(*pargs, **pkw), 5)
+    NC = want[6].shape[1]
+    # the probe's work is a few microseconds of device time
     kernels["log2_probe"]["ms"] = device_ms(
-        lambda: log2_cuda.log2_probe_cuda(dev))
+        lambda: log2_cuda.log2_probe_cuda(dev), kernel="probe")
+    kernels["log2_probe"]["call_ms"] = cuda_ms(
+        lambda: log2_cuda.log2_probe_cuda(dev), 50)
     kernels["log2_probe"]["plain_ms"] = device_ms(
         lambda: log2_cuda.log2_probe_plain(dev))
-    Cr, NC = candp.shape
-    # rank: probabilities, candidates and states in, metrics out; the
-    # probe: 2,048 costs out, each a multiply, a log2, a multiply and a
-    # truncation in float32
-    kernels["rank_candidates"]["bound_ms"], kernels["rank_candidates"][
-        "bound_by"] = bound(Cr * PR * 4 + 2 * Cr * NC * 4 + Cr * 8 * 4
-                            + 128 * 4, OPS_PER_BIT * 26 * Cr * NC,
-                            I32_OPS_PER_S)
+    # the proposal stage: propose_work; the probe: 2,048 costs out, each
+    # a multiply, a log2, a multiply and a truncation in float32
+    kernels["propose"]["bound_ms"], kernels["propose"]["bound_by"] = bound(
+        *propose_work(C, 1, NC, M64, PR), I32_OPS_PER_S)
     kernels["log2_probe"]["bound_ms"], kernels["log2_probe"][
         "bound_by"] = bound(2048 * 4, 4 * 2048, F32_OPS_PER_S)
     # no single PyTorch call computes any of the three functions
     for k in kernels.values():
         k["library_ms"] = None
     say("times", tolerance=0,
-        repair_ms=kernels["repair_cost"]["ms"],
+        repair_device_ms=kernels["repair_cost"]["ms"],
+        repair_call_ms=kernels["repair_cost"]["call_ms"],
         repair_bound_ms=kernels["repair_cost"]["bound_ms"],
         repair_plain_ms=kernels["repair_cost"]["plain_ms"],
         repair_shape=f"C={C},n={n64},positions={start64}..{n64}",
-        rank_ms=kernels["rank_candidates"]["ms"],
-        rank_bound_ms=kernels["rank_candidates"]["bound_ms"],
-        rank_plain_ms=kernels["rank_candidates"]["plain_ms"],
-        rank_shape=f"C={Cr},NC={NC}",
+        propose_device_ms=kernels["propose"]["ms"],
+        propose_call_ms=kernels["propose"]["call_ms"],
+        propose_bound_ms=kernels["propose"]["bound_ms"],
+        propose_bound_by=kernels["propose"]["bound_by"],
+        propose_plain_ms=kernels["propose"]["plain_ms"],
+        propose_shape=f"C={C},NC={NC},n={n64}",
         log2_device_ms=kernels["log2_probe"]["ms"],
+        log2_call_ms=kernels["log2_probe"]["call_ms"],
         log2_bound_ms=kernels["log2_probe"]["bound_ms"],
         log2_plain_device_ms=kernels["log2_probe"]["plain_ms"])
 
@@ -694,6 +774,7 @@ def main() -> int:
     rows = [{"name": name, "route": "cuda", "source": k["source"],
              "replaces": k["replaces"], "launches": launches[name],
              "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+             "call_ms": k["call_ms"],
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
              "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
             for name, k in kernels.items()]

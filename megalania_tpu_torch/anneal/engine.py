@@ -7,10 +7,11 @@ axis — with a shared global best updated by exact argmin every iteration
 and epoch restarts that reseed every chain from the best parse (steps
 1-2) or from the initial parse (step 0).
 
-One iteration: candidate enumeration and ranking (rank kernel), the
-mutation choice, the fused repair+cost pass (repair kernel) with the two
-mutated cells substituted in-pass, acceptance (the reference's cooling
-rule, main.c:86), best tracking, restarts.  Port of
+One iteration: the proposal stage (proposal kernel: the key schedule,
+candidate enumeration and ranking, the mutation choice, the site and
+acceptance draws), the fused repair+cost pass (repair kernel) with the
+two mutated cells substituted in-pass, acceptance (the reference's
+cooling rule, main.c:86), best tracking, restarts.  Port of
 megalania_tpu/anneal/engine.py; `run_iters` is a Python loop.
 
 Device: every tensor of a BlockContext and an AnnealState lives on
@@ -41,11 +42,10 @@ import torch.distributed as dist
 from ..match import candidates as C_
 from ..match.suffix import build_lce
 from ..models import packets as P
-from ..ops import log2_cuda, problayout, rank_cuda, repair_cuda
+from ..ops import log2_cuda, problayout, propose_cuda, repair_cuda
 from ..ops import tables as T
 from ..utils import fixedpoint as fp
 from ..utils import threefry as R
-from . import moves
 from .config import AnnealConfig
 
 
@@ -219,8 +219,8 @@ def init_state(ctx: BlockContext, cfg: AnnealConfig,
         torch.full((Cn,), n, dtype=torch.int32, device=dev), u, ctx, cfg)
     chains = ChainState(
         slab=slabs, cost_hi=hi, cost_lo=lo, rank_probs=probs, rec_ctx=rctx,
-        rec_dists=rdists, rec_live=rlive, live_count=count, key=ks[:, 0],
-        snap_carry=snapc)
+        rec_dists=rdists, rec_live=rlive, live_count=count,
+        key=ks[:, 0].contiguous(), snap_carry=snapc)
     best_slab, best = slabs[0].clone(), torch.stack([hi[0], lo[0]])
     if group is not None:
         src = dist.get_global_rank(group, 0)
@@ -232,21 +232,6 @@ def init_state(ctx: BlockContext, cfg: AnnealConfig,
         it_in_epoch=0, epochs_done=0, moves_done=0, sweep_j=0,
         snap_pos=torch.zeros((), dtype=torch.int32, device=dev), u_prev=0,
         skey=skey)
-
-
-def _propose(slabs, q, rec_ctx, rec_dists, rank_probs, keys,
-             ctx: BlockContext, cfg: AnnealConfig):
-    """One proposed mutation per row: the two mutated cell values for
-    in-pass substitution at q/q+1 (the slab itself is not written)."""
-    cands = moves.enumerate_candidates(
-        slabs, q, rec_dists, ctx.data, ctx.rank, ctx.sparse, ctx.cand_dist,
-        ctx.cand_len, ctx.cand_count, sublens=cfg.sublens)
-    metric = rank_cuda.rank(rank_probs, moves.pack_candidates(cands),
-                            rec_ctx, rec_dists,
-                            *moves.site_bytes(ctx.data, q, rec_dists),
-                            ctx.corr, lc=cfg.lc)
-    return moves.select_mutation(slabs, q, rec_dists, cands, metric, keys,
-                                 ctx.data, top_k=cfg.top_k)
 
 
 def _p_trans(cfg: AnnealConfig, n: int, it_in_epoch: int, step: int):
@@ -275,9 +260,6 @@ def _chains_iter(state: AnnealState, ctx: BlockContext, step: int,
     dev = ctx.device
     i32 = torch.int32
     sched = effective_schedule(cfg)
-    ks = R.split(chains.key, 4)
-    key_next, k_prop, k_u, k_acc = ks[:, 0], ks[:, 1], ks[:, 2], ks[:, 3]
-    skey_next = R.split(state.skey, 2)[0]
 
     if sched == "sweep":
         tile = choose_tile(n, cfg.chain_block, cfg.lc)
@@ -316,37 +298,35 @@ def _chains_iter(state: AnnealState, ctx: BlockContext, step: int,
         qmin = q.min()
         if group is not None:
             dist.all_reduce(qmin, op=dist.ReduceOp.MIN, group=group)
-        cap_pos = torch.minimum(qmin, torch.tensor(u_min, device=dev))
+        cap_pos = torch.clamp(qmin, max=u_min)
         cap_pos = torch.maximum(cap_pos // tile * tile, start_pos).to(i32)
     else:
         cap_pos = None                   # capture the final state
 
+    # the proposal stage, one call: the key schedule, the candidates and
+    # their ranking, the two mutated cells of every row (chain-major,
+    # cfg.proposals per chain), each row's recording site (under the
+    # sweep its own site inside the shared stratum) and each chain's
+    # acceptance uniform
+    if sched == "sweep":
+        site = dict(u_lo=stratum, span=width)
+    else:
+        site = dict(span=None if cfg.site_mode == "packet" else n)
+    key_next, skey_next, mut0, mut1, u, acc_u, _ = propose_cuda.propose(
+        chains.key, state.skey, chains.slab, q, rec_ctx, rec_dists,
+        chains.rank_probs, chains.live_count, ctx, proposals=Pn,
+        top_k=cfg.top_k, sublens=cfg.sublens, lc=cfg.lc, **site)
+
     if Pn > 1:
         def rep(x):
             return None if x is None else torch.repeat_interleave(x, Pn, 0)
-        k_prop = R.split(k_prop, Pn).reshape(Cn * Pn, 2)
-        k_u = R.split(k_u, Pn).reshape(Cn * Pn, 2)
-        slab_in, q_in, rctx_in, rdists_in, probs_in, lc_in = (
-            rep(chains.slab), rep(q), rep(rec_ctx), rep(rec_dists),
-            rep(chains.rank_probs), rep(chains.live_count))
+        slab_in, q_in = rep(chains.slab), rep(q)
         probs_snap, carry_snap = rep(probs_c), rep(carry_c)
     else:
-        slab_in, q_in, rctx_in, rdists_in, probs_in, lc_in = (
-            chains.slab, q, rec_ctx, rec_dists, chains.rank_probs,
-            chains.live_count)
+        slab_in, q_in = chains.slab, q
         probs_snap, carry_snap = probs_c, carry_c
-
-    mut0, mut1 = _propose(slab_in, q_in, rctx_in, rdists_in, probs_in,
-                          k_prop, ctx, cfg)
-    if sched == "sweep":
-        # every row draws its own site inside the shared stratum
-        u = stratum + R.randint(k_u, (), 0, width)
-    elif cfg.site_mode == "packet":
-        u = R.randint(k_u, (), 0, torch.clamp(lc_in, min=1))
-    else:
-        u = R.randint(k_u, (), 0, n)
     (new_slab, hi, lo, probs, rctx, rdists, rlive, count,
-     snapc) = _repair_cost(slab_in, q_in, u.to(i32), ctx, cfg, mut0=mut0,
+     snapc) = _repair_cost(slab_in, q_in, u, ctx, cfg, mut0=mut0,
                            mut1=mut1, start_pos=start_pos, cap_pos=cap_pos,
                            probs_in=probs_snap, carry_in=carry_snap)
 
@@ -370,7 +350,7 @@ def _chains_iter(state: AnnealState, ctx: BlockContext, step: int,
         p_trans = torch.tensor(0.0, dtype=torch.float32)
     else:
         p_trans = _p_trans(cfg, n, state.it_in_epoch, step)
-    trans = R.uniform(k_acc) < p_trans.to(dev)
+    trans = acc_u < float(p_trans)        # the float32 value, exactly
     if cfg.accept == "mixed":
         gid = torch.arange(Cn, device=dev) + chain_shard(group)[0] * Cn
         trans = trans & (gid % 2 == 0)
@@ -408,11 +388,14 @@ def anneal_iteration(state: AnnealState, ctx: BlockContext,
                                                       group)
     rank, size = chain_shard(group)
 
-    # global best (reference keeps one best slab, main.c:89-92)
-    b = fp.argmin(chains.cost_hi, chains.cost_lo)
-    cand_hi, cand_lo = chains.cost_hi[b], chains.cost_lo[b]
+    # global best (reference keeps one best slab, main.c:89-92), read
+    # by index_select so that the host does not wait for the device
+    b = fp.argmin(chains.cost_hi, chains.cost_lo).reshape(1)
+    cand_hi = chains.cost_hi.index_select(0, b)[0]
+    cand_lo = chains.cost_lo.index_select(0, b)[0]
     improved = fp.less(cand_hi, cand_lo, state.best_hi, state.best_lo)
-    best_slab = torch.where(improved, chains.slab[b], state.best_slab)
+    best_slab = torch.where(improved, chains.slab.index_select(0, b)[0],
+                            state.best_slab)
     best_hi = torch.where(improved, cand_hi, state.best_hi)
     best_lo = torch.where(improved, cand_lo, state.best_lo)
     if group is not None:

@@ -12,7 +12,7 @@ Mirrors the reference move distribution
 
 Candidates come from the precomputed dense Pareto table plus rep-stack
 LCE probes, and are *ranked* under the chain's snapshot probability
-state (ops/rank_cuda.py).  The ranking is a proposal heuristic only —
+state (ops/propose_cuda.py).  The ranking is a proposal heuristic only —
 acceptance always uses the exact cost from the repair pass.
 
 Port of megalania_tpu/anneal/moves.py: where the reference vmaps one
@@ -26,7 +26,7 @@ import torch
 
 from ..match.suffix import lce
 from ..models import packets as P
-from ..ops import rank_cuda, tables as T
+from ..ops import propose_cuda, tables as T
 from ..utils import threefry as R
 
 SUBLENS = 3  # default lengths per (dist, maxlen) entry: m, m*2//3, 2
@@ -154,10 +154,10 @@ def rank_candidates(cands: Candidates, rank_probs, rec_ctx, rec_dists,
                     byte, match_byte, prev_byte, lc: int = 0):
     """Amortized bit cost (cost // len) per candidate [C, NC] under the
     ranking state (class-packed rank_probs); BIG where invalid.  The
-    plain version of the rank kernel (ops/rank_cuda.rank_plain)."""
-    return rank_cuda.rank_plain(rank_probs, pack_candidates(cands), rec_ctx,
-                                rec_dists, byte, match_byte, prev_byte,
-                                lc=lc)
+    plain ranking of the proposal kernel (ops/propose_cuda.rank_plain)."""
+    return propose_cuda.rank_plain(rank_probs, pack_candidates(cands),
+                                   rec_ctx, rec_dists, byte, match_byte,
+                                   prev_byte, lc=lc)
 
 
 def biased_topk_choice(metric, valid, k, key, bias_draws=8,

@@ -21,7 +21,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "meg_log2_probe": [_P, _P],
     "meg_repair": [_P] * 17 + [_I] * 9 + [_P, _P],
-    "meg_rank": [_P] * 5 + [_I] * 4 + [_P, _P],
+    "meg_propose": [_P] * 22 + [_I] * 15 + [_P, _P],
 }
 
 
@@ -60,14 +60,16 @@ def check(err: int, name: str):
                            f"(cudaError {err})")
 
 
-def require(t: torch.Tensor, name: str, shape=None, dtype=torch.int32):
+def require(t: torch.Tensor, name: str, shape=None, dtype=torch.int32,
+            rows: bool = False):
     """Raise unless `t` is a contiguous CUDA tensor of the given dtype and
-    shape (None entries match any size)."""
+    shape (None entries match any size).  rows: only each row need be
+    contiguous (the kernel takes the row stride)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if not (t[:1].is_contiguous() if rows else t.is_contiguous()):
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and (len(shape) != t.dim() or any(
             s is not None and s != d for s, d in zip(shape, t.shape))):

@@ -1,8 +1,9 @@
 """Kernel 1: the float32 log2 probe, and the exact-log2 correction.
 
-The repair and rank kernels cost a bit as trunc(-log2(p/2048)*2048) in
+The proposal kernel costs a bit as trunc(-log2(p/2048)*2048) in
 float32 (csrc/meg_cost.cuh f32_log2_cost) plus a 2-bit correction that
-makes the sum equal tables.LOG2_TABLE exactly.  The correction is built
+makes the sum equal tables.LOG2_TABLE exactly (the repair kernel reads
+the exact table).  The correction is built
 from what the device's float32 path really returns: the probe kernel
 runs the kernels' own f32_log2_cost for every p, and the host encodes
 the difference to the exact table.

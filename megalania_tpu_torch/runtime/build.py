@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 NATIVE_SRC = os.path.join(_PKG, "native")
 
-# no --use_fast_math: the log2 probe and the rank kernel must run the exact
+# no --use_fast_math: the log2 probe and the proposal kernel must run the exact
 # float32 log2 sequence the correction table was built from
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -13,7 +13,7 @@ import torch
 from megalania_tpu_torch.anneal import engine
 from megalania_tpu_torch.anneal.config import AnnealConfig
 from megalania_tpu_torch.models import packets as P
-from megalania_tpu_torch.ops import log2_cuda, rank_cuda, repair_cuda
+from megalania_tpu_torch.ops import log2_cuda, propose_cuda, repair_cuda
 from megalania_tpu_torch.ops import tables as T
 
 pytestmark = pytest.mark.cuda
@@ -86,24 +86,49 @@ def test_repair_kernel_matches_plain(dev, ctx, kw):
     _same(got, want)
 
 
-def test_rank_kernel_matches_plain(dev, ctx):
-    state = engine.init_state(ctx, AnnealConfig(chains=C))
-    ch = state.chains
-    n = ctx.data.shape[0]
-    q = torch.arange(C, dtype=torch.int32, device=dev) * (n // C)
-    from megalania_tpu_torch.anneal import moves
-    cands = moves.enumerate_candidates(ch.slab, q, ch.rec_dists, ctx.data,
-                                       ctx.rank, ctx.sparse, ctx.cand_dist,
-                                       ctx.cand_len, ctx.cand_count)
-    args = (ch.rank_probs, moves.pack_candidates(cands).contiguous(),
-            ch.rec_ctx, ch.rec_dists,
-            *moves.site_bytes(ctx.data, q, ch.rec_dists))
-    _same([rank_cuda.rank_cuda(*args, ctx.corr)],
-          [rank_cuda.rank_plain(*args)])
+@pytest.mark.parametrize("state", ["fresh", "iterated"])
+@pytest.mark.parametrize("site", ["sweep", "byte", "packet"])
+@pytest.mark.parametrize("lc,proposals", [(0, 1), (0, 2), (3, 1), (3, 2)],
+                         ids=["lc0-p1", "lc0-p2", "lc3-p1", "lc3-p2"])
+def test_propose_kernel_matches_plain(dev, lc, proposals, site, state):
+    """Every output of the proposal kernel equals propose_plain's on the
+    same CUDA tensors: the initial state with uniform probabilities
+    (tied metrics) and the state after three iterations."""
+    cfg = AnnealConfig(chains=C, lc=lc, proposals=proposals,
+                       iters_per_epoch=4)
+    c = engine.make_context(DATA, cfg, dev)
+    st = engine.init_state(c, cfg)
+    if state == "fresh":
+        st = st._replace(chains=st.chains._replace(
+            rank_probs=torch.full_like(st.chains.rank_probs, T.PROB_INIT)))
+    else:
+        st = engine.run_iters(st, c, cfg, 3)
+    n = c.data.shape[0]
+    q = torch.as_tensor(np.random.default_rng(9).integers(0, n, C),
+                        dtype=torch.int32, device=dev)
+    q[0], q[1] = n - 1, 0
+    ch = st.chains
+    args = (ch.key, st.skey, ch.slab, q, ch.rec_ctx, ch.rec_dists,
+            ch.rank_probs, ch.live_count, c)
+    kw = dict(proposals=proposals, top_k=cfg.top_k, sublens=cfg.sublens,
+              lc=lc, **{"sweep": dict(u_lo=256, span=256),
+                        "byte": dict(span=n), "packet": dict(span=None)}[site])
+    before = propose_cuda.propose_cuda.launches
+    got = propose_cuda.propose_cuda(*args, **kw)
+    assert propose_cuda.propose_cuda.launches == before + 1
+    _same(got, propose_cuda.propose_plain(*args, **kw))
 
 
-def test_engine_cuda_equals_cpu(dev):
-    cfg = AnnealConfig(chains=C, iters_per_epoch=4)
+ENGINE_CONFIGS = {
+    "defaults": {},
+    "branches": dict(site_mode="packet", proposals=2, accept="mixed",
+                     init="mixed_opt", lrep_fallback="litsrep"),
+}
+
+
+@pytest.mark.parametrize("config", list(ENGINE_CONFIGS))
+def test_engine_cuda_equals_cpu(dev, config):
+    cfg = AnnealConfig(chains=C, iters_per_epoch=4, **ENGINE_CONFIGS[config])
     out = []
     for d in (dev, "cpu"):
         c = engine.make_context(DATA[:256], cfg, d)

@@ -1,6 +1,6 @@
 """Candidate enumeration, ranking and the mutation choice of
 megalania_tpu_torch equal megalania_tpu's: the plain ranking
-(rank_cuda.rank_plain, behind moves.rank_candidates) against the Pallas
+(propose_cuda.rank_plain, behind moves.rank_candidates) against the Pallas
 ranking kernel in interpret mode and the reference's XLA ranking."""
 import numpy as np
 import pytest
@@ -14,7 +14,7 @@ from megalania_tpu.models import packets as JP
 from megalania_tpu.ops import pallas_rank, pallas_repair2
 from megalania_tpu_torch.anneal import engine as TE, moves as TM
 from megalania_tpu_torch.models import packets as TP
-from megalania_tpu_torch.ops import rank_cuda
+from megalania_tpu_torch.ops import propose_cuda
 from megalania_tpu_torch.utils import threefry as R
 
 DATA = (b"abra cadabra abra cadabra! abracadabra? "
@@ -93,12 +93,12 @@ def test_rank_plain_matches_kernel_and_xla(setup):
         j.f2p, corr, cb=C, interpret=True, prev_byte=jnp.asarray(prev),
         lc=lc)
     np.testing.assert_array_equal(got, np.asarray(want_kernel))
-    # the dispatcher takes the plain version for CPU tensors
+    # the proposal kernel's plain ranking, on the packed candidates
     np.testing.assert_array_equal(
-        got, rank_cuda.rank(_tt(probs), TM.pack_candidates(tc),
-                            _tt(rec_ctx), _tt(rec_dists), _tt(byte),
-                            _tt(mb), _tt(prev), t.corr, lc=lc).numpy())
-    assert (got < rank_cuda.BIG).sum() > C
+        got, propose_cuda.rank_plain(_tt(probs), TM.pack_candidates(tc),
+                                     _tt(rec_ctx), _tt(rec_dists), _tt(byte),
+                                     _tt(mb), _tt(prev), lc=lc).numpy())
+    assert (got < propose_cuda.BIG).sum() > C
 
 
 def test_select_mutation(setup):

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Where one anneal iteration of megalania_tpu_torch spends its time on a
 CUDA card: the main-path configuration (a 64 KiB block of
-tools/corpus/libc.so, 128 chains, CLI defaults), a few warm-up
-iterations, `--iters` iterations timed on the host clock, then as many
-again under torch.profiler.
+tools/corpus/libc.so, 128 chains, CLI defaults).  A few warm-up
+iterations (discarded), then `--iters` iterations from the initial state
+timed on the host clock, then the same iterations from the same state
+again under torch.profiler, so that both windows do the same work.  The
+default, 128 iterations, is the main path's first sweep (32 tiles x 4
+repeats, starting with the full walk): the work of an average iteration
+of the main path's 256.
 
-    python3 tools/profile_torch_iter.py [--iters 32] [--trace-dir DIR]
+    python3 tools/profile_torch_iter.py [--iters 128] [--trace-dir DIR]
 
 Prints the card (nvidia-smi name and power limit), the wall time per
 iteration without the profiler, the device time per iteration (the sum
 of the kernels' own durations in the profiled window), the device busy
-share (device time over unprofiled wall time), the repair kernel's
-device time and share, and the top operators by device time.  The
+share (device time over unprofiled wall time), the repair kernel's and
+the proposal kernel's device time, share and launches per iteration,
+and the top operators by device time.  The
 timing and the trace go through the library's own hooks
 (megalania_tpu_torch/utils/profiling.py): step_timer for the unprofiled
 window, trace for the profiled one, whose chrome trace is written to
@@ -38,7 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--iters", type=int, default=32)
+    ap.add_argument("--iters", type=int, default=128)
     ap.add_argument("--warmup", type=int, default=8)
     ap.add_argument("--trace-dir", default=os.path.join(
         ROOT, "megalania_tpu_torch", "_build", "profile_torch_iter"),
@@ -61,15 +66,15 @@ def main() -> int:
                 "rb").read()[:65536]
     cfg = AnnealConfig(chains=128)
     ctx = engine.make_context(data, cfg, "cuda")
-    state = engine.run_iters(engine.init_state(ctx, cfg), ctx, cfg,
-                             args.warmup)
+    state0 = engine.init_state(ctx, cfg)
+    engine.run_iters(state0, ctx, cfg, args.warmup)
     torch.cuda.synchronize()
     with profiling.step_timer("iterations") as timed:
-        state = engine.run_iters(state, ctx, cfg, args.iters)
+        state = engine.run_iters(state0, ctx, cfg, args.iters)
         timed["result"] = state
     wall_ms = timed["seconds"] * 1e3 / args.iters
     with profiling.trace(args.trace_dir) as prof:
-        state = engine.run_iters(state, ctx, cfg, args.iters)
+        engine.run_iters(state0, ctx, cfg, args.iters)
         torch.cuda.synchronize()
     events = prof.key_averages()
     # kernels only: an operator's own device time repeats its kernels'
@@ -77,19 +82,19 @@ def main() -> int:
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
         / args.iters
     launches = sum(e.count for e in kernels) / args.iters
-    repair = [e for e in kernels if "repair_kernel" in e.key]
-    repair_ms = sum(e.self_device_time_total for e in repair) / 1e3 \
-        / args.iters
     print(f"card: {smi}")
     print(f"iterations={args.iters} wall_ms_per_iter={wall_ms:.3f} "
           f"moves_per_s={cfg.chains * 1e3 / wall_ms:.1f} "
           f"device_ms_per_iter={dev_ms:.3f} "
           f"device_busy_share={dev_ms / wall_ms:.4f} "
           f"kernel_launches_per_iter={launches:.1f}")
-    print(f"repair_kernel_ms_per_iter={repair_ms:.3f} "
-          f"repair_share_of_device={repair_ms / dev_ms:.4f} "
-          f"repair_launches_per_iter="
-          f"{sum(e.count for e in repair) / args.iters:.1f}")
+    for name in ("repair", "propose"):
+        mine = [e for e in kernels if f"{name}_kernel" in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3 / args.iters
+        print(f"{name}_kernel_ms_per_iter={ms:.4f} "
+              f"{name}_share_of_device={ms / dev_ms:.4f} "
+              f"{name}_launches_per_iter="
+              f"{sum(e.count for e in mine) / args.iters:.1f}")
     print(events.table(sort_by="self_device_time_total", row_limit=15,
                        max_name_column_width=60))
     print(f"trace: {os.path.join(args.trace_dir, 'trace.json')}")
