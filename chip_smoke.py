@@ -12,8 +12,10 @@ its plain version at the main path's first state and times the kernels
 at the main path's shapes: each kernel's own device time (the
 profiler's kernel durations) and its wrapper's call time, beside their
 bounds (bytes over the HBM rate, or operations over their peak, from
-this run's inputs); it also times the repair kernel's full walk per
-packet, and holds the repair kernel with the block's bytes in device
+this run's inputs); beside the log2 correction kernel it prints the
+card's launch floor (the device time of a one-element fill) and the host
+time of one log2_correction call; it also times the repair kernel's full
+walk per packet, and holds the repair kernel with the block's bytes in device
 memory (a 256 KiB block) against its plain version.  Later phases drive
 the other paths on the card: an interrupted and resumed 64 KiB block
 against the uninterrupted one, the whole-parse cost (scan_cost) against
@@ -231,8 +233,9 @@ def main() -> int:
     corpus = open(CORPUS, "rb").read()
     kernels = {
         "log2_probe": dict(source="megalania_tpu_torch/csrc/log2_probe.cu",
-                           replaces="megalania_tpu/ops/pallas_repair2.py:60",
-                           fn=log2_cuda.log2_probe_cuda),
+                           replaces="megalania_tpu/ops/pallas_repair2.py:60 "
+                                    "(probe) and :67 (log2_correction)",
+                           fn=log2_cuda.log2_correction_cuda),
         "repair_cost": dict(source="megalania_tpu_torch/csrc/repair.cu",
                             replaces="megalania_tpu/ops/pallas_repair2.py:206",
                             fn=repair_cuda.repair_cost_cuda),
@@ -262,7 +265,7 @@ def main() -> int:
     names = (("repair_kernelILb1E", "repair_kernel<bytes in smem>"),
              ("repair_kernelILb0E", "repair_kernel<bytes in global>"),
              ("propose_kernel", "propose_kernel"),
-             ("probe", "log2_probe_kernel"))
+             ("log2_correction", "log2_correction_kernel"))
     regs = {next((nm for key, nm in names if key in e), e): " ".join(
         re.sub(r"ptxas info\s*:|Function properties for \w+", "",
                txt).split()) for e, txt in entries}
@@ -275,19 +278,37 @@ def main() -> int:
         repair_smem_bytes_64k=plan64.smem_bytes,
         repair_bytes_in_smem_64k=plan64.bytes_in_smem)
 
-    # ---- 3. log2 probe -----------------------------------------------
-    raw = log2_cuda.log2_probe_cuda(dev)
+    # ---- 3. log2 correction kernel vs its plain version ---------------
+    table = torch.as_tensor(T.LOG2_TABLE_I32, device=dev)
+    corr, raw, status = log2_cuda.log2_correction_cuda(table)
+    want = log2_cuda.correction_plain(raw, table)
+    words_err = int((corr.long() - want.long()).abs().max())
+    check(words_err == 0, "correction kernel words == plain version's "
+          f"on the kernel's raw ({words_err})")
     plain = log2_cuda.log2_probe_plain(dev)
-    corr = log2_cuda.build_correction(raw.cpu().numpy())
-    exact = log2_cuda.apply_correction(raw.cpu().numpy(), corr)
+    exact = log2_cuda.apply_correction(raw.cpu().numpy(), corr.cpu().numpy())
     check(np.array_equal(exact[1:], T.LOG2_TABLE_NP[1:]),
-          "probe + correction == LOG2_TABLE for p in 1..2047")
-    raw_dev = int((raw.long() - plain.long()).abs().max())
-    kernels["log2_probe"]["max_abs_err"] = int(
-        np.abs(exact[1:] - plain.cpu().numpy()[1:]).max())
-    say("log2", tolerance=0, raw_vs_table_max=raw_dev,
+          "raw + correction == LOG2_TABLE for p in 1..2047")
+    diff = plain.long() - raw.long()
+    check(status.tolist() == [int(diff.min()), int(diff.max())],
+          f"status {status.tolist()} == range of table - raw")
+    same = torch.nonzero(table[1:] == raw[1:]).flatten()
+    bad = table.clone()
+    bad[1 + int(same[700])] += 2
+    for fn, args in ((log2_cuda.log2_correction_cuda, (bad,)),
+                     (log2_cuda.correction_plain, (raw, bad))):
+        try:
+            fn(*args)
+            check(False, f"{fn.__name__} raises on a deviation of 2")
+        except RuntimeError as e:
+            check("deviates by >1" in str(e), f"{fn.__name__}: {e}")
+    kernels["log2_probe"]["max_abs_err"] = max(words_err, int(
+        np.abs(exact[1:] - plain.cpu().numpy()[1:]).max()))
+    say("log2", tolerance=0, words_vs_plain_max=words_err,
+        raw_vs_table_max=int(diff.abs().max()),
         corrected_vs_table_max=kernels["log2_probe"]["max_abs_err"],
-        corrections=int((raw.cpu().numpy() != plain.cpu().numpy()).sum()))
+        corrections=int((diff != 0).sum()), status=status.tolist(),
+        raises_beyond_one=True)
 
     # ---- 4. repair kernel vs its plain version, both on the card -----
     n, C = 2048, 128
@@ -615,19 +636,37 @@ def main() -> int:
     kernels["propose"]["plain_ms"] = cuda_ms(
         lambda: propose_cuda.propose_plain(*pargs, **pkw), 5)
     NC = want[6].shape[1]
-    # the probe's work is a few microseconds of device time
+    # the correction kernel on the main path's table (one launch per
+    # block context), beside the card's launch floor: the device time of
+    # a one-element fill
+    table64 = c64.log2
+    _, raw64, _ = log2_cuda.log2_correction_cuda(table64)
     kernels["log2_probe"]["ms"] = device_ms(
-        lambda: log2_cuda.log2_probe_cuda(dev), kernel="probe")
+        lambda: log2_cuda.log2_correction_cuda(table64),
+        kernel="log2_correction")
     kernels["log2_probe"]["call_ms"] = cuda_ms(
-        lambda: log2_cuda.log2_probe_cuda(dev), 50)
+        lambda: log2_cuda.log2_correction_cuda(table64), 50)
     kernels["log2_probe"]["plain_ms"] = device_ms(
-        lambda: log2_cuda.log2_probe_plain(dev))
-    # the proposal stage: propose_work; the probe: 2,048 costs out, each
-    # a multiply, a log2, a multiply and a truncation in float32
+        lambda: log2_cuda.correction_plain(raw64, table64))
+    launch_floor_ms = device_ms(lambda: torch.zeros(1, device=dev))
+    host = []
+    for _ in range(50):
+        t = time.perf_counter()
+        log2_cuda.log2_correction(table64)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+    log2_host_ms = statistics.median(host)
+    kernels["log2_probe"].update(launch_floor_ms=launch_floor_ms,
+                                 host_ms=log2_host_ms)
+    # the proposal stage: propose_work; the correction: the table read,
+    # the words and the status written (raw is a verification output the
+    # kernel writes on top of that), and per p a multiply, a log2, a
+    # multiply and a truncation in float32
     kernels["propose"]["bound_ms"], kernels["propose"]["bound_by"] = bound(
         *propose_work(C, 1, NC, M64, PR), I32_OPS_PER_S)
     kernels["log2_probe"]["bound_ms"], kernels["log2_probe"][
-        "bound_by"] = bound(2048 * 4, 4 * 2048, F32_OPS_PER_S)
+        "bound_by"] = bound(2048 * 4 + (128 + 2) * 4, 4 * 2048,
+                            F32_OPS_PER_S)
     # no single PyTorch call computes any of the three functions
     for k in kernels.values():
         k["library_ms"] = None
@@ -646,7 +685,9 @@ def main() -> int:
         log2_device_ms=kernels["log2_probe"]["ms"],
         log2_call_ms=kernels["log2_probe"]["call_ms"],
         log2_bound_ms=kernels["log2_probe"]["bound_ms"],
-        log2_plain_device_ms=kernels["log2_probe"]["plain_ms"])
+        log2_plain_device_ms=kernels["log2_probe"]["plain_ms"],
+        launch_floor_ms=launch_floor_ms,
+        log2_correction_host_ms=log2_host_ms)
 
     def reset():
         for k in kernels.values():
@@ -776,7 +817,8 @@ def main() -> int:
              "max_abs_err": k["max_abs_err"], "ms": k["ms"],
              "call_ms": k["call_ms"],
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-             "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+             **{x: k[x] for x in ("launch_floor_ms", "host_ms") if x in k}}
             for name, k in kernels.items()]
     print(smi)
     print(json.dumps({"kernels": rows}))

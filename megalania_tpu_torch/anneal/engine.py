@@ -59,7 +59,7 @@ class BlockContext(NamedTuple):
     cand_len: torch.Tensor    # int32[n, M]
     cand_count: torch.Tensor  # int32[n]
     log2: torch.Tensor        # int32[2048] exact cost table
-    corr: torch.Tensor        # int32[128] log2 correction (rank kernel)
+    corr: torch.Tensor        # int32[128] log2 correction (proposal kernel)
     f2p: torch.Tensor         # int32[PROBS_PAD] flat->packed slot map
     init_slab: torch.Tensor   # int32[n] initial parse (cfg.init)
     device: torch.device
@@ -151,19 +151,21 @@ def context_from_numpy(*, data, rank, sparse, cand_dist, cand_len,
                        device="cuda") -> BlockContext:
     """A BlockContext on `device` from the reference's BlockContext
     fields as numpy arrays (init_slab as uint32).  The log2 correction is
-    always built by `device`'s own probe."""
+    always built by `device`'s own float32 path (one kernel launch on
+    cuda)."""
     device = torch.device(device)
 
     def t(a):
         return torch.as_tensor(np.array(a, np.int32),
                                device=device)
+    log2 = t(T.LOG2_TABLE_I32)
     return BlockContext(
         data=t(data),
         data_u8=torch.as_tensor(np.array(data, np.uint8), device=device),
         rank=t(rank), sparse=t(sparse),
         cand_dist=t(cand_dist), cand_len=t(cand_len),
-        cand_count=t(cand_count), log2=t(T.LOG2_TABLE_I32),
-        corr=log2_cuda.log2_correction(device),
+        cand_count=t(cand_count), log2=log2,
+        corr=log2_cuda.log2_correction(log2),
         f2p=t(problayout.get_layout(lc).F2P_PAD),
         init_slab=P.from_u32(init_slab, device), device=device)
 

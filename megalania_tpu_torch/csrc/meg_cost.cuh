@@ -1,8 +1,9 @@
 // Device code shared by the three kernels (log2_probe.cu, repair.cu,
 // propose.cu): packet unpack/pack, the 26-slot bit plan (with the 8 literal
 // bits and the matched-literal rule), the ctx and rep-stack transitions,
-// the float32 log2 cost and its 2-bit exactness correction (the probe and
-// the proposal kernel; the repair kernel reads the exact table instead).
+// the float32 log2 cost and its 2-bit exactness correction (the correction
+// kernel and the proposal kernel; the repair kernel reads the exact table
+// instead).
 //
 // Probabilities are addressed in the class-packed layout of
 // megalania_tpu_torch/ops/problayout.py: a slot's row is the first row of
@@ -51,9 +52,10 @@ __device__ __forceinline__ uint32_t pack_live(const Packet& p) {
 }
 
 // trunc(-log2(pc / 2048) * 2048) in float32 for pc in 1..2047.  Never
-// inlined: the probe and the proposal kernel run one and the same
-// instruction sequence, so the probe's correction is exact for the
-// proposal kernel by construction.  (Built without --use_fast_math.)
+// inlined: the correction kernel (log2_probe.cu) and the proposal kernel
+// run one and the same instruction sequence, so the correction is exact
+// for the proposal kernel by construction.  (Built without
+// --use_fast_math.)
 static __device__ __noinline__ int f32_log2_cost(int pc) {
   const float x = float(pc) * (1.0f / 2048.0f);
   return int(truncf(-log2f(x) * 2048.0f));

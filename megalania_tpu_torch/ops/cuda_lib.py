@@ -19,7 +19,7 @@ from ..runtime import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "meg_log2_probe": [_P, _P],
+    "meg_log2_correction": [_P, _P, _P],
     "meg_repair": [_P] * 17 + [_I] * 9 + [_P, _P],
     "meg_propose": [_P] * 22 + [_I] * 15 + [_P, _P],
 }

@@ -52,10 +52,42 @@ def _same(got, want):
         assert torch.equal(g.cpu(), w.cpu()), k
 
 
+def _exact(dev):
+    return torch.as_tensor(T.LOG2_TABLE_I32, device=dev)
+
+
 def test_log2_probe_exact(dev):
-    raw = log2_cuda.log2_probe_cuda(dev).cpu().numpy()
-    exact = log2_cuda.apply_correction(raw, log2_cuda.build_correction(raw))
+    corr, raw, _ = log2_cuda.log2_correction_cuda(_exact(dev))
+    exact = log2_cuda.apply_correction(raw.cpu().numpy(), corr.cpu().numpy())
     np.testing.assert_array_equal(exact[1:], T.LOG2_TABLE_NP[1:])
+
+
+def test_log2_correction_matches_plain(dev):
+    """The kernel's words are the plain version's on the kernel's own raw
+    costs, its status is their deviation range, and one call is one
+    launch."""
+    exact = _exact(dev)
+    before = log2_cuda.log2_correction_cuda.launches
+    corr, raw, status = log2_cuda.log2_correction_cuda(exact)
+    assert log2_cuda.log2_correction_cuda.launches == before + 1
+    assert corr.is_cuda and raw.is_cuda
+    assert torch.equal(corr, log2_cuda.correction_plain(raw, exact))
+    diff = log2_cuda.log2_probe_plain(dev).long() - raw.long()
+    lo, hi = status.tolist()
+    assert [lo, hi] == [int(diff.min()), int(diff.max())]
+    assert -1 <= lo <= hi <= 1
+    assert torch.equal(log2_cuda.log2_correction(exact), corr)
+    assert log2_cuda.log2_correction_cuda.launches == before + 2
+
+
+def test_log2_correction_raises_beyond_one(dev):
+    exact = _exact(dev)
+    _, raw, _ = log2_cuda.log2_correction_cuda(exact)
+    same = torch.nonzero(exact[1:] == raw[1:]).flatten()
+    bad = exact.clone()
+    bad[1 + int(same[700])] += 2
+    with pytest.raises(RuntimeError, match="deviates by >1"):
+        log2_cuda.log2_correction_cuda(bad)
 
 
 @pytest.mark.parametrize("kw", [

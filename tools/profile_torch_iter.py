@@ -10,8 +10,17 @@ repeats, starting with the full walk): the work of an average iteration
 of the main path's 256.
 
     python3 tools/profile_torch_iter.py [--iters 128] [--trace-dir DIR]
+                                        [--root CHECKOUT]
 
-Prints the card (nvidia-smi name and power limit), the wall time per
+--root profiles the megalania_tpu_torch of another checkout (default:
+this one), so that one call can alternate two trees (parent, change,
+change, parent); cards differ between calls.
+
+Prints the card (nvidia-smi name and power limit), the host time to
+build the block's context on the card from its numpy fields
+(engine.context_from_numpy: the host-to-device copies and the log2
+correction; median of 50, host clock around the call and a
+synchronize), the wall time per
 iteration without the profiler, the device time per iteration (the sum
 of the kernels' own durations in the profiled window), the device busy
 share (device time over unprofiled wall time), the repair kernel's and
@@ -48,13 +57,15 @@ def main() -> int:
     ap.add_argument("--trace-dir", default=os.path.join(
         ROOT, "megalania_tpu_torch", "_build", "profile_torch_iter"),
         help="directory for the chrome trace of the profiled window")
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose megalania_tpu_torch is profiled")
     args = ap.parse_args()
 
     import torch
     from torch.autograd import DeviceType
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_iter: no CUDA device")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     from megalania_tpu_torch.anneal import engine
     from megalania_tpu_torch.anneal.config import AnnealConfig
     from megalania_tpu_torch.utils import profiling
@@ -66,6 +77,8 @@ def main() -> int:
                 "rb").read()[:65536]
     cfg = AnnealConfig(chains=128)
     ctx = engine.make_context(data, cfg, "cuda")
+    print(f"root: {os.path.relpath(os.path.abspath(args.root), ROOT)} "
+          f"block_context_host_ms={context_host_ms(ctx, cfg):.6f}")
     state0 = engine.init_state(ctx, cfg)
     engine.run_iters(state0, ctx, cfg, args.warmup)
     torch.cuda.synchronize()
@@ -100,6 +113,26 @@ def main() -> int:
     print(f"trace: {os.path.join(args.trace_dir, 'trace.json')}")
     repair_roles(ctx, state.chains.slab)
     return 0
+
+
+def context_host_ms(ctx, cfg, reps: int = 50) -> float:
+    """Host ms to build `ctx` again on its device from numpy fields, as a
+    block context is built: median of `reps` calls after a warm-up."""
+    import statistics
+    import time
+    import torch
+    from megalania_tpu_torch.anneal import engine
+    from megalania_tpu_torch.models import packets as P
+    fields = {f: getattr(ctx, f).cpu().numpy() for f in (
+        "data", "rank", "sparse", "cand_dist", "cand_len", "cand_count")}
+    fields["init_slab"] = P.to_u32(ctx.init_slab)
+    ms = []
+    for _ in range(reps + 1):
+        t = time.perf_counter()
+        engine.context_from_numpy(**fields, lc=cfg.lc, device=ctx.device)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ms[1:])
 
 
 def repair_roles(ctx, slab, reps: int = 5):
