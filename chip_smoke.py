@@ -19,8 +19,14 @@ walk per packet, and holds the repair kernel with the block's bytes in device
 memory (a 256 KiB block) against its plain version.  Later phases drive
 the other paths on the card: an interrupted and resumed 64 KiB block
 against the uninterrupted one, the whole-parse cost (scan_cost) against
-the native cost, and the chain-sharded anneal over a one-rank NCCL group
-against the single-process one.  Each phase prints one line.  The last
+the native cost, the chain-sharded anneal over a one-rank NCCL group
+against the single-process one, the 1 MiB corpus as 16 blocks of 64 KiB
+at 512 chains in one container (tools/run_1mib_corpus_torch.py), a
+64 KiB block at lc=3 that the anneal must improve
+(tools/run_64k_block_torch.py), and a small container on cuda against
+the same on cpu; phases 12 and 13 also hold the repair and proposal
+kernels against their plain versions at their own shapes (512 chains;
+lc=3 at 64 KiB).  Each phase prints one line.  The last
 lines are the card's name and power limit (nvidia-smi), a JSON object
 with one entry per kernel, and {"ok": true, "device": {...}}.  Any
 failed check raises: the script then
@@ -210,6 +216,63 @@ def max_abs_diff(got, want):
     return worst
 
 
+def first_proposal(ctx, state, cfg):
+    """(sites, (rec_ctx, rec_dists), site keywords) of the proposal stage
+    of the main path's first iteration from a fresh state: a fresh sweep
+    (sites and stack from the zero carry where a chain's recorded site
+    ran off the end), stratum 0."""
+    import torch
+    from megalania_tpu_torch.anneal import engine
+    ch = state.chains
+    n = ctx.data.shape[0]
+    fresh = ch.rec_live >= n
+    rec = (torch.where(fresh, 0, ch.rec_ctx),
+           torch.where(fresh[:, None], 0, ch.rec_dists))
+    return (torch.where(fresh, 0, ch.rec_live), rec,
+            dict(u_lo=0, span=engine.choose_tile(n, cfg.chain_block, cfg.lc)))
+
+
+def repair_rows(ctx, cfg, state, rows, window: int, rng) -> int:
+    """The repair kernel against its plain version at a main-path shape:
+    the kernel at full width (every chain of `state`, so every wave of
+    blocks) from its own snapshot `window` positions before the block's
+    end, with a mutation substituted in-pass at random sites in the
+    window; the plain version (one Python step per position) on `rows`
+    of the same inputs.  Returns the largest |difference| over every
+    output of those rows (exact: 0)."""
+    import numpy as np
+    import torch
+    from megalania_tpu_torch.models import packets as P
+    from megalania_tpu_torch.ops import repair_cuda
+    slab = state.chains.slab
+    C, n = slab.shape
+    dev = slab.device
+
+    def ti(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    kw = dict(site_mode=cfg.site_mode, lrep_fallback=cfg.lrep_fallback,
+              lc=cfg.lc)
+    tabs = (ctx.cand_dist, ctx.cand_len, ctx.log2)
+    start = n - window
+    snap = repair_cuda.repair_cost_cuda(
+        slab, ti(rng.integers(0, n, C)), ti(rng.integers(0, n, C)),
+        ctx.data_u8, *tabs, cap_pos=start, **kw)
+    q, u = ti(rng.integers(start, n, C)), ti(rng.integers(start, n, C))
+    mut0 = ti(P.pack_np(P.SREP, np.zeros(C, np.int64), np.ones(C, np.int64))
+              .view(np.int32))
+    mut1 = ti(P.pack_np(P.LREP, rng.integers(0, 4, C), np.full(C, 2))
+              .view(np.int32))
+    got = repair_cuda.repair_cost_cuda(
+        snap[0], q, u, ctx.data_u8, *tabs, mut0=mut0, mut1=mut1,
+        start_pos=start, probs_in=snap[3], carry_in=snap[8], **kw)
+    r = torch.as_tensor(rows, device=dev)
+    want = repair_cuda.repair_cost_plain(
+        snap[0][r], q[r], u[r], ctx.data, *tabs, mut0=mut0[r], mut1=mut1[r],
+        start_pos=start, probs_in=snap[3][r], carry_in=snap[8][r], **kw)
+    torch.cuda.synchronize()
+    return max_abs_diff(tuple(g[r] for g in got), want)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -217,6 +280,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     sys.path.insert(0, ROOT)
+
     from megalania_tpu_torch import cli, compressor
     from megalania_tpu_torch.anneal import engine
     from megalania_tpu_torch.anneal.config import AnnealConfig
@@ -226,6 +290,7 @@ def main() -> int:
                                          propose_cuda, repair_cuda,
                                          tables as T)
     from megalania_tpu_torch.runtime import build
+    from megalania_tpu_torch.utils import fixedpoint as fp
 
     os.makedirs(WORK, exist_ok=True)
     dev = torch.device("cuda", 0)
@@ -417,19 +482,23 @@ def main() -> int:
         valid=int((want[6] < propose_cuda.BIG).sum()))
 
     # ---- 6. slice parity: the engine on cuda == on cpu ---------------
-    cfg6 = AnnealConfig(chains=C, iters_per_epoch=4)
-    t = time.time()
-    states = {}
-    for name in ("cuda", "cpu"):
-        c6 = engine.make_context(block, cfg6, name)
-        s = engine.run_iters(engine.init_state(c6, cfg6), c6, cfg6, 12)
-        states[name] = engine.state_to_numpy(s)
-    a, b = states["cuda"], states["cpu"]
-    same_state(a, b, "engine state cuda == cpu")
-    say("slice", n=n, C=C, iters=12, epochs=int(a["epochs_done"]),
-        identical=True, best_bytes=round(
-            18 + (int(a["best_hi"]) * 65536 + int(a["best_lo"])) / 16384.0, 2),
-        seconds=round(time.time() - t, 1))
+    # lc=0 at 128 chains; the lc=3 twin at 8 chains (its plain side takes
+    # ~90 s of host Python at 128)
+    for lc, C6 in ((0, C), (3, 8)):
+        cfg6 = AnnealConfig(chains=C6, iters_per_epoch=4, lc=lc)
+        t = time.time()
+        states = {}
+        for name in ("cuda", "cpu"):
+            c6 = engine.make_context(block, cfg6, name)
+            s = engine.run_iters(engine.init_state(c6, cfg6), c6, cfg6, 12)
+            states[name] = engine.state_to_numpy(s)
+        a, b = states["cuda"], states["cpu"]
+        same_state(a, b, f"engine state cuda == cpu (lc={lc})")
+        say("slice", n=n, C=C6, lc=lc, iters=12,
+            epochs=int(a["epochs_done"]), identical=True,
+            best_bytes=round(18 + (int(a["best_hi"]) * 65536
+                                   + int(a["best_lo"])) / 16384.0, 2),
+            seconds=round(time.time() - t, 1))
 
     # ---- 7. the main path through the CLI ----------------------------
     src = os.path.join(WORK, "libc64k.bin")
@@ -611,19 +680,10 @@ def main() -> int:
         full_walk_ms=fullg_ms, packets_per_chain_max=int(fullg_pk.max()),
         ns_per_packet_per_chain=fullg_ms * 1e6 / int(fullg_pk.max()))
 
-    # the proposal stage of the main path's first iteration: the fresh
-    # state, a fresh sweep (sites and stack from the zero carry where a
-    # chain's recorded site ran off the end), stratum 0
-    ch = s64.chains
-    fresh = ch.rec_live >= n64
-    q8 = torch.where(fresh, 0, ch.rec_live)
-    rec8 = (torch.where(fresh, 0, ch.rec_ctx),
-            torch.where(fresh[:, None], 0, ch.rec_dists))
-    tile64 = engine.choose_tile(n64, cfg8.chain_block, cfg8.lc)
-    pargs, pkw = propose_args(c64, s64, q8, cfg8, rec=rec8, u_lo=0,
-                              span=tile64)
-    got, want = propose_both(c64, s64, q8, cfg8, rec=rec8, u_lo=0,
-                             span=tile64)
+    # the proposal stage of the main path's first iteration
+    q8, rec8, site8 = first_proposal(c64, s64, cfg8)
+    pargs, pkw = propose_args(c64, s64, q8, cfg8, rec=rec8, **site8)
+    got, want = propose_both(c64, s64, q8, cfg8, rec=rec8, **site8)
     d = max_abs_diff(got, want)
     check(d == 0, f"proposal kernel == plain version (n={n64}, C={C}): {d}")
     kernels["propose"]["max_abs_err"] = max(
@@ -811,6 +871,186 @@ def main() -> int:
             launches=json.dumps(counts11).replace(" ", ""))
     finally:
         dist.destroy_process_group()
+
+    # ---- 12. the 1 MiB corpus: 16 blocks of 64 KiB at 512 chains -------
+    # the scale runner tools/run_1mib_corpus_torch.py through
+    # compressor.compress: one context, one log2 correction and 64
+    # iterations per block (the main path's 32,768 moves), one container
+    from megalania_tpu_torch.parallel import blocks as blocks_mod
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import run_1mib_corpus_torch as r1m
+    import run_64k_block_torch as r64k
+    blocks12, iters12, C12 = 16, 64, 512
+    out12 = os.path.join(WORK, "corpus1mib.mlz")
+    reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res12 = r1m.main([str(iters12 * C12), str(C12), "-o", out12],
+                         corpus_bytes=blocks12 << 16)
+    counts12 = launched("corpus_1mib")
+    data12 = r1m.corpus(blocks12 << 16)
+    blob12 = open(out12, "rb").read()
+    streams12 = blocks_mod.unpack_container(blob12)
+    check(res12["decode_ok"] and compressor.decompress(blob12) == data12,
+          "the 1 MiB container decodes")
+    check(len(streams12) == blocks12, f"{len(streams12)} streams")
+    for bi, st in enumerate(streams12):
+        check(lzma.decompress(st, format=lzma.FORMAT_ALONE)
+              == data12[bi << 16:(bi + 1) << 16], f"stream {bi} decodes")
+    check(counts12["log2_probe"] == blocks12
+          and counts12["propose"] == blocks12 * iters12
+          and counts12["repair_cost"] == blocks12 * (iters12 + 1),
+          f"one context per block, {iters12} iterations each: {counts12}")
+    alloc12 = [b["allocated_bytes"] for b in res12["per_block"]]
+    check(max(alloc12) - min(alloc12) < 16 << 20,
+          f"device memory does not grow with the block index: {alloc12}")
+    cfg12 = AnnealConfig(chains=C12, chain_block=cli.chain_block(C12))
+    dp12 = {}
+    for bi in (0, blocks12 - 1):
+        dp12[bi] = len(compressor.compress_block(
+            data12[bi << 16:(bi + 1) << 16], cfg12, total_moves=0).stream)
+        check(len(streams12[bi]) <= dp12[bi],
+              f"block {bi}: annealed {len(streams12[bi])} <= DP-only "
+              f"{dp12[bi]}")
+    # the repair and proposal kernels against their plain versions at
+    # this phase's shapes, on block 0 at 512 chains: the repair kernel's
+    # two waves (rows of both compared), the first iteration's 512
+    # proposal rows
+    c12 = engine.make_context(data12[:65536], cfg12, dev)
+    s12 = engine.init_state(c12, cfg12)
+    rows12 = [*range(8), *range(C12 - 8, C12)]
+    rep12 = repair_rows(c12, cfg12, s12, rows12, 4096, rng)
+    q12, rec12, site12 = first_proposal(c12, s12, cfg12)
+    prop12 = max_abs_diff(*propose_both(c12, s12, q12, cfg12, rec=rec12,
+                                        **site12))
+    check(rep12 == 0 and prop12 == 0, f"repair ({rep12}) and proposal "
+          f"({prop12}) kernels == plain versions at C={C12}, n=65536")
+    split = res12["per_block"]
+    say("corpus_1mib", n=res12["n"], blocks=blocks12, block_size=65536,
+        C=C12, chain_block=res12["chain_block"], iters_per_block=iters12,
+        corpus_sha256=res12["corpus_sha256"][:12],
+        seconds=res12["seconds"], anneal_seconds=res12["anneal_seconds"],
+        other_seconds=res12["other_seconds"],
+        anneal_moves_per_s=res12["anneal_moves_per_s"],
+        block_wall_s_mean=round(statistics.mean(
+            b["wall_s"] for b in split), 3),
+        block_anneal_s_mean=round(statistics.mean(
+            b["anneal_s"] for b in split), 3),
+        bytes=res12["bytes"], liblzma_9e_bytes=res12["liblzma_9e_bytes"],
+        gzip9_bytes=res12["gzip9_bytes"],
+        dp_only_bytes=json.dumps({f"block{bi}": v for bi, v in dp12.items()}
+                                 ).replace(" ", ""),
+        annealed_bytes=json.dumps({f"block{bi}": len(streams12[bi])
+                                   for bi in dp12}).replace(" ", ""),
+        peak_device_bytes=res12["peak_device_bytes"],
+        allocated_bytes_per_block=f"{min(alloc12)}..{max(alloc12)}",
+        launches=json.dumps(counts12).replace(" ", ""), tolerance=0,
+        repair_max_abs_err=rep12,
+        repair_rows_held=f"0..7,{C12 - 8}..{C12 - 1}",
+        repair_positions=f"{65536 - 4096}..65536",
+        propose_max_abs_err=prop12, propose_rows=C12,
+        propose_span=site12["span"])
+
+    # ---- 13. a 64 KiB block at lc=3 through the 64 KiB runner ---------
+    # 128 chains (chain_block 128), init=mixed, 256 iterations: the
+    # anneal must improve on its initial parses on the card.  Greedy
+    # acceptance: the cooled rule's p_trans exceeds 1 for the first
+    # iterations, so the chains accept every move and wander above the
+    # greedy start, and in 256 iterations the best never fell below it
+    for k in ("RUN64K_N", "RUN64K_CKPT"):
+        os.environ.pop(k, None)
+    C13, iters13 = 128, 256
+    out13 = os.path.join(WORK, "block64k_lc3.lzma")
+    reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res13 = r64k.main([str(iters13 * C13), str(C13), "3", "mixed",
+                           "greedy", "-o", out13])
+    counts13 = launched("block_64k_lc3")
+    data13 = r64k.corpus(65536)
+    blob13 = open(out13, "rb").read()
+    check(res13["decode_ok"] and lzma.decompress(
+        blob13, format=lzma.FORMAT_ALONE) == data13, "lc=3 block decodes")
+    check(counts13["propose"] == iters13, f"{iters13} iterations: {counts13}")
+    cfg13 = AnnealConfig(chains=C13, chain_block=cli.chain_block(C13, 3),
+                         lc=3, init="mixed", accept="greedy")
+    c13 = engine.make_context(data13, cfg13, dev)
+    s13 = engine.init_state(c13, cfg13)
+    first13 = engine.best_cost_bytes(s13)
+    check(res13["predicted"] < first13,
+          f"the anneal improved the parse: best {res13['predicted']} < "
+          f"first {first13}")
+    # the kernels against their plain versions at lc=3, n=65,536 (129,808
+    # B of shared memory per chain) from the initial state
+    rep13 = repair_rows(c13, cfg13, s13, [0, 1, 2, 3, 124, 125, 126, 127],
+                        4096, rng)
+    q13, rec13, site13 = first_proposal(c13, s13, cfg13)
+    prop13 = max_abs_diff(*propose_both(c13, s13, q13, cfg13, rec=rec13,
+                                        **site13))
+    check(rep13 == 0 and prop13 == 0, f"repair ({rep13}) and proposal "
+          f"({prop13}) kernels == plain versions at lc=3, n=65536")
+    # a second witness of the improvement: the same 256 iterations from
+    # the same initial state end at the runner's best, and the host's
+    # exact cost (optparse_native.cost_train, no code shared with the
+    # card) of the first and the final best parse equals the card's
+    arr13 = np.frombuffer(data13, np.uint8)
+    host13 = [optparse_native.cost_train(arr13, P.to_u32(s13.best_slab),
+                                         lc=3)[0]]
+    card13 = [fp.to_int(s13.best_hi, s13.best_lo)]
+    end13 = engine.run_iters(s13, c13, cfg13, iters13)
+    check(engine.best_cost_bytes(end13) == res13["predicted"],
+          "run_iters from the initial state ends at the runner's best")
+    host13.append(optparse_native.cost_train(
+        arr13, P.to_u32(end13.best_slab), lc=3)[0])
+    card13.append(fp.to_int(end13.best_hi, end13.best_lo))
+    check(host13 == card13 and host13[1] < host13[0],
+          f"host cost of the first and final best {host13} == the card's "
+          f"{card13}, and falls")
+    gap13 = len(blob13) - res13["predicted"]
+    check(0 <= gap13 < 16, f"lc=3: 0 <= len(out) - predicted < 16 ({gap13})")
+    say("block_64k_lc3", n=65536, C=C13, chain_block=cfg13.chain_block,
+        lc=3, init="mixed", accept="greedy", iters=iters13,
+        corpus_sha256=res13["corpus_sha256"][:12],
+        first_best_bytes=round(first13, 4),
+        best_bytes=round(res13["predicted"], 4),
+        improved_by=round(first13 - res13["predicted"], 4), bytes=len(blob13),
+        gap=round(gap13, 2), liblzma_9e_bytes=res13["liblzma_9e_bytes"],
+        anneal_moves_per_s=res13["segments"][-1]["moves_per_sec"],
+        seconds=res13["seconds"],
+        repair_smem_bytes=repair_cuda.staging_plan(65536, 3).smem_bytes,
+        peak_device_bytes=res13["peak_device_bytes"],
+        launches=json.dumps(counts13).replace(" ", ""),
+        host_cost=f"{host13[0]}->{host13[1]}", host_cost_equal=True,
+        tolerance=0, repair_max_abs_err=rep13,
+        repair_rows_held="0..3,124..127",
+        repair_positions=f"{65536 - 4096}..65536",
+        propose_max_abs_err=prop13, propose_span=site13["span"])
+    for name, d in (("repair_cost", max(rep12, rep13)),
+                    ("propose", max(prop12, prop13))):
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], d)
+
+    # ---- 14. a small container, cuda == cpu ---------------------------
+    # four 2 KiB blocks and a tail through compressor.compress, 8 chains,
+    # 3 iterations per block: the many-block orchestration itself
+    data14 = corpus[32768:32768 + 4 * 2048 + 700]
+    cfg14, moves14 = AnnealConfig(chains=8, block_size=2048), 5 * 3 * 8
+    reset()
+    t = time.time()
+    got14 = compressor.compress(data14, cfg14, total_moves=moves14,
+                                device=dev)
+    cuda14_s = time.time() - t
+    counts14 = launched("container")
+    t = time.time()
+    want14 = compressor.compress(data14, cfg14, total_moves=moves14,
+                                 device="cpu")
+    cpu14_s = time.time() - t
+    check(got14 == want14, "container bytes cuda == cpu")
+    check(len(blocks_mod.unpack_container(got14)) == 5
+          and compressor.decompress(got14) == data14,
+          "the container holds 5 streams and decodes")
+    say("container", n=len(data14), blocks=5, block_size=2048, C=8,
+        iters_per_block=moves14 // 5 // 8, bytes=len(got14),
+        identical=True, cuda_seconds=round(cuda14_s, 1),
+        cpu_seconds=round(cpu14_s, 1),
+        launches=json.dumps(counts14).replace(" ", ""))
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],
              "replaces": k["replaces"], "launches": launches[name],

@@ -48,13 +48,25 @@ def _write(path: str, blob: bytes):
         f.write(blob)
 
 
-def _device(name: str):
+def require_device(name: str) -> str:
+    """`name`, after checking that a "cuda" device exists: without one
+    the program exits; it never falls back to the CPU."""
     import torch
     if name == "cuda" and not torch.cuda.is_available():
         raise SystemExit("megalania_tpu_torch: --device cuda but no CUDA "
                          "device is available (use --device cpu for the "
                          "plain PyTorch path)")
     return name
+
+
+def chain_block(chains: int, lc: int = 0) -> int:
+    """Chains per block of the sweep-tile rule (engine.choose_tile) for
+    `chains` chains: the widest of 512/384/256/128 that divides them,
+    else 128, and 128 whenever lc > 0 (the rule of the reference's CLI
+    and scale runners)."""
+    if lc or chains % 128:
+        return 128
+    return max(d for d in (512, 384, 256, 128) if chains % d == 0)
 
 
 def main(argv=None):
@@ -129,7 +141,7 @@ def main(argv=None):
         return _run(args, 0)
     import torch.distributed as dist
     from .parallel import multihost
-    rank = multihost.initialize(_device(args.device))
+    rank = multihost.initialize(require_device(args.device))
     try:
         return _run(args, rank)
     finally:
@@ -140,11 +152,7 @@ def main(argv=None):
 def _run(args, rank: int) -> int:
     if args.cmd == "compress":
         data = open(args.file, "rb").read()
-        cb = args.chain_block or (
-            max(d for d in (512, 384, 256, 128) if args.chains % d == 0)
-            if args.chains % 128 == 0 else 128)
-        if args.lc and not args.chain_block:
-            cb = min(cb, 128)
+        cb = args.chain_block or chain_block(args.chains, args.lc)
         cfg = AnnealConfig(
             chains=args.chains, chain_block=cb, block_size=args.block_size,
             top_k=args.top_k, seed=args.seed, proposals=args.proposals,
@@ -155,7 +163,7 @@ def _run(args, rank: int) -> int:
             opt_candidates=args.opt_candidates, opt_walk=args.opt_walk,
             opt_passes=args.opt_passes, opt_window=args.opt_window,
         )
-        device = _device(args.device)
+        device = require_device(args.device)
         progress = None if args.quiet else _progress_printer(time.time())
         metrics = None
         if args.metrics_jsonl:

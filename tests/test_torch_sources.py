@@ -1,6 +1,7 @@
 """megalania_tpu_torch stands alone: it builds from its own sources,
-imports nothing of megalania_tpu and reads no file under it; its entry
-points default to the card."""
+imports nothing of megalania_tpu and reads no file under it, and neither
+do its scripts (the scale runners, the profile tool, chip_smoke) import
+jax or megalania_tpu; its entry points default to the card."""
 import ast
 import inspect
 import os
@@ -84,6 +85,37 @@ def test_no_module_reaches_into_the_reference():
                                 sub.value, str) and ref_name(sub.value):
                             bad.append((rel, sub.value))
     assert not bad, bad
+
+
+SCRIPTS = sorted(
+    [os.path.join("tools", f) for f in os.listdir(os.path.join(ROOT, "tools"))
+     if f.endswith("_torch.py")]
+    + [os.path.join("tools", "profile_torch_iter.py"), "chip_smoke.py"])
+
+
+@pytest.mark.parametrize("rel", SCRIPTS)
+def test_scripts_import_neither_jax_nor_the_reference(rel):
+    """The port's scripts (the scale runners, the profile tool,
+    chip_smoke) import no jax and nothing of megalania_tpu, at any
+    depth of their code."""
+    def bad(name):
+        return name and (name.split(".")[0] in ("jax", "jaxlib",
+                                                "megalania_tpu"))
+    with open(os.path.join(ROOT, rel)) as fh:
+        tree = ast.parse(fh.read())
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if bad(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            found += [node.module] if bad(node.module) else []
+    assert not found, found
+
+
+def test_runner_ports_exist():
+    assert [s for s in SCRIPTS if s.startswith("tools/run_")] == [
+        "tools/run_1mib_corpus_torch.py", "tools/run_4mib_corpus_torch.py",
+        "tools/run_64k_block_torch.py"]
 
 
 @pytest.mark.parametrize("fn,param", [

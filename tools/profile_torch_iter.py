@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Where one anneal iteration of megalania_tpu_torch spends its time on a
-CUDA card: the main-path configuration (a 64 KiB block of
-tools/corpus/libc.so, 128 chains, CLI defaults).  A few warm-up
+CUDA card: by default the main-path configuration (a 64 KiB block of
+tools/corpus/libc.so, 128 chains, CLI defaults); --chains, --chain-block
+(default: the CLI's rule, cli.chain_block) and --lc change it, so that
+the breakdown can be taken at the scale runners' 512 chains or at lc=3.
+A few warm-up
 iterations (discarded), then `--iters` iterations from the initial state
 timed on the host clock, then the same iterations from the same state
 again under torch.profiler, so that both windows do the same work.  The
-default, 128 iterations, is the main path's first sweep (32 tiles x 4
-repeats, starting with the full walk): the work of an average iteration
-of the main path's 256.
+default is one sweep, the first (ceil(n / tile) tiles x 4 repeats,
+starting with the full walk): on the main path 32 x 4 = 128 iterations,
+the work of an average iteration of its 256; at 512 chains the tile is
+512 and the sweep 512 iterations, at lc=3 (128 chains) 1,024 and 256.
 
-    python3 tools/profile_torch_iter.py [--iters 128] [--trace-dir DIR]
-                                        [--root CHECKOUT]
+    python3 tools/profile_torch_iter.py [--iters SWEEP] [--chains 128]
+        [--chain-block CB] [--lc 0] [--trace-dir DIR] [--root CHECKOUT]
 
 --root profiles the megalania_tpu_torch of another checkout (default:
 this one), so that one call can alternate two trees (parent, change,
@@ -52,8 +56,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--iters", type=int, default=128)
+    ap.add_argument("--iters", type=int, default=0,
+                    help="iterations timed and profiled (0 = one sweep)")
     ap.add_argument("--warmup", type=int, default=8)
+    ap.add_argument("--chains", type=int, default=128)
+    ap.add_argument("--chain-block", type=int, default=0,
+                    help="chains per block of the sweep-tile rule (0 = "
+                    "the CLI's rule for --chains and --lc)")
+    ap.add_argument("--lc", type=int, default=0)
     ap.add_argument("--trace-dir", default=os.path.join(
         ROOT, "megalania_tpu_torch", "_build", "profile_torch_iter"),
         help="directory for the chrome trace of the profiled window")
@@ -66,6 +76,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_iter: no CUDA device")
     sys.path.insert(0, os.path.abspath(args.root))
+    from megalania_tpu_torch import cli
     from megalania_tpu_torch.anneal import engine
     from megalania_tpu_torch.anneal.config import AnnealConfig
     from megalania_tpu_torch.utils import profiling
@@ -75,9 +86,14 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     data = open(os.path.join(ROOT, "tools", "corpus", "libc.so"),
                 "rb").read()[:65536]
-    cfg = AnnealConfig(chains=128)
+    cfg = AnnealConfig(chains=args.chains, lc=args.lc, chain_block=(
+        args.chain_block or cli.chain_block(args.chains, args.lc)))
     ctx = engine.make_context(data, cfg, "cuda")
+    tile = engine.choose_tile(len(data), cfg.chain_block, cfg.lc)
+    args.iters = args.iters or -(-len(data) // tile) * cfg.sweep_repeats
     print(f"root: {os.path.relpath(os.path.abspath(args.root), ROOT)} "
+          f"chains={cfg.chains} chain_block={cfg.chain_block} lc={cfg.lc} "
+          f"tile={tile} "
           f"block_context_host_ms={context_host_ms(ctx, cfg):.6f}")
     state0 = engine.init_state(ctx, cfg)
     engine.run_iters(state0, ctx, cfg, args.warmup)
@@ -111,7 +127,7 @@ def main() -> int:
     print(events.table(sort_by="self_device_time_total", row_limit=15,
                        max_name_column_width=60))
     print(f"trace: {os.path.join(args.trace_dir, 'trace.json')}")
-    repair_roles(ctx, state.chains.slab)
+    repair_roles(ctx, state.chains.slab, cfg.lc)
     return 0
 
 
@@ -135,7 +151,7 @@ def context_host_ms(ctx, cfg, reps: int = 50) -> float:
     return statistics.median(ms[1:])
 
 
-def repair_roles(ctx, slab, reps: int = 5):
+def repair_roles(ctx, slab, lc: int, reps: int = 5):
     """The repair kernel's full walk of `slab` from a profiling build:
     per packet per chain, each role's busy and waiting cycles (walker,
     coster, and the first of the two planners, which plans every other
@@ -158,7 +174,7 @@ def repair_roles(ctx, slab, reps: int = 5):
     def walk():
         return repair_cuda.repair_cost_cuda(
             slab, q, u, ctx.data_u8, ctx.cand_dist, ctx.cand_len, ctx.log2,
-            lrep_fallback="match")
+            lrep_fallback="match", lc=lc)
     walk()
     torch.cuda.synchronize()
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
