@@ -26,7 +26,13 @@ at 512 chains in one container (tools/run_1mib_corpus_torch.py), a
 (tools/run_64k_block_torch.py), and a small container on cuda against
 the same on cpu; phases 12 and 13 also hold the repair and proposal
 kernels against their plain versions at their own shapes (512 chains;
-lc=3 at 64 KiB).  Each phase prints one line.  The last
+lc=3 at 64 KiB).  Phase 15 runs bench_torch.py's three rows at their
+full settings and phase 16 tools/bench_corpus_torch.py's four files at
+the reference's move budget: the bytes must be the ones the JAX package
+recorded (BENCH_r05.json, BENCH_CORPUS.json), and phase 15 holds the
+repair and proposal kernels at the headline shape (n=2,048, 512
+chains).  Each phase prints one line; the kernels' entry also gives
+their launches on every path driven.  The last
 lines are the card's name and power limit (nvidia-smi), a JSON object
 with one entry per kernel, and {"ok": true, "device": {...}}.  Any
 failed check raises: the script then
@@ -753,10 +759,13 @@ def main() -> int:
         for k in kernels.values():
             k["fn"].launches = 0
 
+    by_path = {"main_path": launches}
+
     def launched(path: str) -> dict:
         counts = {name: k["fn"].launches for name, k in kernels.items()}
         for name, cnt in counts.items():
             check(cnt > 0, f"{name} launched on the {path} path ({cnt})")
+        by_path[path] = counts
         return counts
 
     # ---- 9. checkpoint/resume at 64 KiB, C=128 ------------------------
@@ -1052,8 +1061,138 @@ def main() -> int:
         cpu_seconds=round(cpu14_s, 1),
         launches=json.dumps(counts14).replace(" ", ""))
 
+    # ---- 15. bench: bench_torch.py's three rows at full settings -------
+    # 512 chains (chain_block 512) on SURVEY.md's bytes: n=2,048 with 512
+    # warm-up + 512 timed iterations from init=mixed; the design point
+    # n=65,536 with one sweep (512 iterations) + one, from init=mixed and
+    # from init=optimal.  The mixed rows must print the bests bench.py
+    # recorded (BENCH_r05.json, "%.2f"): 1244.86 and 16717.00 B
+    import bench_torch
+    C15 = 512
+    plan15 = (("headline", bench_torch.N, 512, "mixed", "1244.86"),
+              ("design_point", bench_torch.N64K, 0, "mixed", "16717.00"),
+              ("converged", bench_torch.N64K, 0, "optimal", None))
+    reset()
+    t15 = time.time()
+    rows15 = {}
+    for key, n15, it15, init15, _ in plan15:
+        t = time.time()
+        rows15[key] = bench_torch.measure(n15, C15, it15, init=init15)
+        rows15[key]["row_seconds"] = time.time() - t
+    counts15 = launched("bench")
+    rows_seconds15 = time.time() - t15
+    iters15 = sum(r["iters"] for r in rows15.values())
+    check([r["iters"] for r in rows15.values()] == [512, 512, 512],
+          "512 iterations a window in every row (tile 256 at n=2,048 is "
+          "32 a sweep; tile 512 at n=65,536 is 512)")
+    check(counts15 == {"log2_probe": 3, "repair_cost": 2 * iters15 + 3,
+                       "propose": 2 * iters15},
+          f"one context per row, one launch per iteration: {counts15}")
+    for key, _, _, _, want in plan15:
+        if want:
+            got = "%.2f" % rows15[key]["best_bytes"]
+            check(got == want, f"bench {key}: best {got} B == the "
+                  f"recorded {want} B")
+    # the kernels against their plain versions at the headline shape
+    # (n=2,048, 512 chains: two waves): the first iteration's 512
+    # proposal rows, and the repair kernel on rows 0-7 and 504-511 over
+    # the last 1,024 positions, at the initial state and after 40
+    # iterations (past the first sweep cycle)
+    cfg15 = AnnealConfig(chains=C15, chain_block=bench_torch.chain_block(C15),
+                         init="mixed", accept="cooled")
+    c15 = engine.make_context(bench_torch.corpus(bench_torch.N), cfg15, dev)
+    s15 = engine.init_state(c15, cfg15)
+    q15, rec15, site15 = first_proposal(c15, s15, cfg15)
+    prop15 = max_abs_diff(*propose_both(c15, s15, q15, cfg15, rec=rec15,
+                                        **site15))
+    rows_held15 = [*range(8), *range(C15 - 8, C15)]
+    mid15 = engine.run_iters(s15, c15, cfg15, 40)
+    rep15 = max(repair_rows(c15, cfg15, st, rows_held15, 1024, rng)
+                for st in (s15, mid15))
+    check(rep15 == 0 and prop15 == 0, f"repair ({rep15}) and proposal "
+          f"({prop15}) kernels == plain versions at C={C15}, n=2048")
+    # where an iteration's time goes at the headline shape: its device
+    # time (profiler) against its wall time (host clock around 64
+    # iterations ending in a synchronize), from the state after 40
+    held = [mid15]
+
+    def step15():
+        held[0] = engine.run_iters(held[0], c15, cfg15, 1)
+    dev15 = device_ms(step15, 32, 3)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(64):
+        step15()
+    torch.cuda.synchronize()
+    wall15 = (time.perf_counter() - t) * 1e3 / 64
+    seconds15 = time.time() - t15
+    say("bench", C=C15, chain_block=cfg15.chain_block, tolerance=0,
+        **{f"{key}_{f}": rows15[key][f] for key in rows15
+           for f in ("best_bytes", "best_cost", "moves_per_s", "seconds",
+                     "row_seconds")},
+        headline_best="%.2f" % rows15["headline"]["best_bytes"],
+        design_point_best="%.2f" % rows15["design_point"]["best_bytes"],
+        headline_device_ms_per_iter=dev15, headline_wall_ms_per_iter=wall15,
+        headline_busy_share=dev15 / wall15,
+        rows_seconds=round(rows_seconds15, 1), seconds=round(seconds15, 1),
+        launches=json.dumps(counts15).replace(" ", ""),
+        repair_max_abs_err=rep15,
+        repair_rows_held=f"0..7,{C15 - 8}..{C15 - 1}",
+        repair_positions=f"{bench_torch.N - 1024}..{bench_torch.N}",
+        propose_max_abs_err=prop15, propose_rows=C15,
+        propose_span=site15["span"])
+
+    # ---- 16. bench_corpus: the four corpus files at the reference budget
+    # tools/bench_corpus_torch.py at n=2,048, 128 chains, 1,228,800 moves
+    # (3 x 200 x n), with BENCH_CORPUS.json's overrides: the streams must
+    # be the lengths megalania_tpu recorded there and decode, and
+    # liblzma's preset 9 | extreme must give the recorded xz -9e column
+    import bench_corpus_torch
+    want16 = {"survey.md": (1224, 1257), "pallas.md": (965, 1004),
+              "engine.py": (1029, 1061), "libc.so": (789, 824)}
+    with open(os.path.join(ROOT, "BENCH_CORPUS.json")) as f:
+        rec16 = json.load(f)["overrides"]
+    reset()
+    t = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep16 = bench_corpus_torch.main(["--sizes", "2048", "--chains", "128",
+                                         "--init", "optimal"])
+    counts16 = launched("bench_corpus")
+    seconds16 = time.time() - t
+    check(rep16["overrides"] == {k: v for k, v in rec16.items()
+                                 if k != "kernel"},
+          "the recorded overrides (the port has no kernel selector)")
+    rows16 = {r["file"]: r for r in rep16["rows"]}
+    check(list(rows16) == list(want16), f"rows {list(rows16)}")
+    iters16 = 3 * 200 * 2048 // 128
+    for name, (ours, xz) in want16.items():
+        r = rows16[name]
+        check(r["ours"]["moves"] == 1228800 and r["ours"]["decodes"],
+              f"{name}: 1,228,800 moves, decodes with lzma")
+        check(r["ours"]["bytes"] == ours, f"{name}: {r['ours']['bytes']} B "
+              f"== the recorded {ours} B")
+        check(r["xz9e"]["bytes"] == xz, f"{name}: liblzma 9e "
+              f"{r['xz9e']['bytes']} B == the recorded xz -9e {xz} B")
+    check(counts16 == {"log2_probe": 8, "repair_cost": 4 * (iters16 + 3),
+                       "propose": 4 * (iters16 + 1)},
+          f"two contexts a file, one launch per iteration: {counts16}")
+    def per_file(col: str, field: str) -> str:
+        return json.dumps({k: r[col][field] for k, r in rows16.items()}
+                          ).replace(" ", "")
+    say("bench_corpus", n=2048, C=128, moves=1228800, tolerance=0,
+        bytes=per_file("ours", "bytes"),
+        liblzma_9e_bytes=per_file("xz9e", "bytes"),
+        reference_recorded_bytes=per_file("reference", "bytes"),
+        moves_per_s=per_file("ours", "moves_per_s"),
+        file_seconds=per_file("ours", "seconds"),
+        decodes=True, seconds=round(seconds16, 1),
+        launches=json.dumps(counts16).replace(" ", ""))
+    for name, d in (("repair_cost", rep15), ("propose", prop15)):
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], d)
+
     rows = [{"name": name, "route": "cuda", "source": k["source"],
              "replaces": k["replaces"], "launches": launches[name],
+             "launches_by_path": {p: c[name] for p, c in by_path.items()},
              "max_abs_err": k["max_abs_err"], "ms": k["ms"],
              "call_ms": k["call_ms"],
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

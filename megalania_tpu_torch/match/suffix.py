@@ -130,6 +130,9 @@ def lce(rank, sparse, n, a, b):
     hi = torch.maximum(ra, rb) + 1
     span = torch.clamp(hi - lo, min=1)
     k = (bit_length(span) - 1).long()
-    left = sparse[k, lo.long()]
+    # a == b at the last rank puts lo one past the end: that lane's
+    # answer comes from the where below, so read any valid column there
+    # (the reference's gather clamps it)
+    left = sparse[k, torch.clamp(lo, max=sparse.shape[1] - 1).long()]
     right = sparse[k, (hi - (1 << k)).long()]
     return torch.where(a == b, n - a, torch.minimum(left, right))

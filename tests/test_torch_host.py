@@ -130,6 +130,28 @@ def test_emit_plan_and_bytes(path):
         assert lzma.decompress(blob, format=lzma.FORMAT_ALONE) == data
 
 
+def test_lce_every_pair():
+    """match/suffix.lce against the reference's lce_jnp over every pair
+    (a, b) of a block, a == b included: at a == b with the last rank the
+    query reaches one column past the sparse table, which the reference's
+    gather clamps (a 128-byte libc.so cut, whose position 0 has it)."""
+    from megalania_tpu.match import suffix as JS
+    from megalania_tpu_torch.match import suffix as TS
+    with open(os.path.join(ROOT, "tools", "corpus", "libc.so"), "rb") as f:
+        data = f.read()[:128]
+    n = len(data)
+    idx = TS.build_lce(data)
+    jidx = JS.build_lce(data)
+    assert idx.rank[0] == n - 1
+    np.testing.assert_array_equal(idx.rank, jidx.rank)
+    a, b = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    want = JS.lce_jnp(jnp.asarray(jidx.rank), jnp.asarray(jidx.sparse), n,
+                      jnp.asarray(a), jnp.asarray(b))
+    got = TS.lce(torch.as_tensor(idx.rank), torch.as_tensor(idx.sparse), n,
+                 torch.as_tensor(a), torch.as_tensor(b))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_port_never_imports_jax():
     """Every megalania_tpu_torch module imports without pulling in jax
     (a subprocess: this test process has jax loaded already)."""

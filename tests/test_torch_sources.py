@@ -1,8 +1,10 @@
 """megalania_tpu_torch stands alone: it builds from its own sources,
 imports nothing of megalania_tpu and reads no file under it, and neither
-do its scripts (the scale runners, the profile tool, chip_smoke) import
-jax or megalania_tpu; its entry points default to the card."""
+do its scripts (the scale runners, the benchmarks, the profile tool,
+chip_smoke) import jax or megalania_tpu; its entry points default to the
+card."""
 import ast
+import importlib.util
 import inspect
 import os
 
@@ -90,13 +92,14 @@ def test_no_module_reaches_into_the_reference():
 SCRIPTS = sorted(
     [os.path.join("tools", f) for f in os.listdir(os.path.join(ROOT, "tools"))
      if f.endswith("_torch.py")]
-    + [os.path.join("tools", "profile_torch_iter.py"), "chip_smoke.py"])
+    + [os.path.join("tools", "profile_torch_iter.py"), "chip_smoke.py",
+       "bench_torch.py"])
 
 
 @pytest.mark.parametrize("rel", SCRIPTS)
 def test_scripts_import_neither_jax_nor_the_reference(rel):
-    """The port's scripts (the scale runners, the profile tool,
-    chip_smoke) import no jax and nothing of megalania_tpu, at any
+    """The port's scripts (the scale runners, the benchmarks, the profile
+    tool, chip_smoke) import no jax and nothing of megalania_tpu, at any
     depth of their code."""
     def bad(name):
         return name and (name.split(".")[0] in ("jax", "jaxlib",
@@ -118,8 +121,20 @@ def test_runner_ports_exist():
         "tools/run_64k_block_torch.py"]
 
 
+def _script(rel):
+    name = os.path.splitext(os.path.basename(rel))[0]
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.mark.parametrize("fn,param", [
-    (multihost.initialize, "device"), (engine.context_from_numpy, "device")])
+    (multihost.initialize, "device"), (engine.context_from_numpy, "device"),
+    (_script("bench_torch.py").measure, "device"),
+    (_script(os.path.join("tools", "bench_corpus_torch.py")).run_ours,
+     "device")])
 def test_entry_points_default_to_the_card(fn, param):
     assert inspect.signature(fn).parameters[param].default == "cuda"
 
