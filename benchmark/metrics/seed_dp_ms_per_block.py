@@ -1,0 +1,8 @@
+"""Host ms a block spends in the program's span seed.dp (the native
+optimum-parse DP, optparse.seed_slab) in the traced file, over the
+blocks emitted there."""
+from benchlib import spans
+
+
+def read(obs):
+    return spans.per_block_ms(obs, "seed.dp")

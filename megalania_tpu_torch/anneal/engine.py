@@ -12,7 +12,11 @@ candidate enumeration and ranking, the mutation choice, the site and
 acceptance draws), the fused repair+cost pass (repair kernel) with the
 two mutated cells substituted in-pass, acceptance (the reference's
 cooling rule, main.c:86), best tracking, restarts.  Port of
-megalania_tpu/anneal/engine.py; `run_iters` is a Python loop.
+megalania_tpu/anneal/engine.py; `run_iters` is a Python loop.  Under a
+torch profiler five spans (utils/profiling.span) tile each iteration
+in order: iter.draw (the proposal stage and what sets it up), iter.cost
+(the repair pass), iter.accept, iter.best (with the group's exchange)
+and iter.restart (the epoch restart and the sweep bookkeeping).
 
 Device: every tensor of a BlockContext and an AnnealState lives on
 `ctx.device`, chosen by the caller.  On cuda the kernels run; on cpu
@@ -46,6 +50,7 @@ from ..ops import log2_cuda, problayout, propose_cuda, repair_cuda
 from ..ops import tables as T
 from ..utils import fixedpoint as fp
 from ..utils import threefry as R
+from ..utils.profiling import span
 from .config import AnnealConfig
 
 
@@ -128,11 +133,15 @@ def effective_schedule(cfg: AnnealConfig) -> str:
 
 def make_context(data: bytes, cfg: AnnealConfig, device) -> BlockContext:
     """Host-side block preprocessing (LCE index, candidate table, initial
-    parse) and the device's log2 correction; tensors on `device`."""
+    parse) and the device's log2 correction; tensors on `device`.  The
+    index and the annealer's candidate table run in the profiler span
+    context.index, the optimum-parse seed in its own two."""
     device = torch.device(device)
     arr = np.frombuffer(bytes(data), np.uint8)
-    idx = build_lce(arr)
-    tab = C_.build_candidates(arr, cfg.max_candidates, cfg.max_walk, idx)
+    with span("context.index"):
+        idx = build_lce(arr)
+        tab = C_.build_candidates(arr, cfg.max_candidates, cfg.max_walk,
+                                  idx)
     if cfg.init in ("optimal", "mixed_opt"):
         from ..match import optparse
         init_slab, _ = optparse.seed_slab(arr, cfg, index=idx)
@@ -255,119 +264,122 @@ def _chains_iter(state: AnnealState, ctx: BlockContext, step: int,
     snapshot, recording at a shared, tile-stratified low-to-high site.
 
     Returns (ChainState, skey_next, stratum_base, cap_pos)."""
-    chains = state.chains
-    n = ctx.data.shape[0]
-    Cn = chains.slab.shape[0]
-    Pn = cfg.proposals
-    dev = ctx.device
-    i32 = torch.int32
-    sched = effective_schedule(cfg)
+    with span("iter.draw"):
+        chains = state.chains
+        n = ctx.data.shape[0]
+        Cn = chains.slab.shape[0]
+        Pn = cfg.proposals
+        dev = ctx.device
+        i32 = torch.int32
+        sched = effective_schedule(cfg)
 
-    if sched == "sweep":
-        tile = choose_tile(n, cfg.chain_block, cfg.lc)
-        j = state.sweep_j
-        fresh_sweep = j == 0
-        start_pos = (torch.zeros((), dtype=i32, device=dev) if fresh_sweep
-                     else state.snap_pos)
-        stratum = min((j // cfg.sweep_repeats) * tile, n - 1)
-        width = max(min(tile, n - stratum), 1)
-        u_min = stratum
-        if fresh_sweep:
-            probs_c = torch.full_like(chains.rank_probs, T.PROB_INIT)
-            carry_c = torch.zeros_like(chains.snap_carry)
+        if sched == "sweep":
+            tile = choose_tile(n, cfg.chain_block, cfg.lc)
+            j = state.sweep_j
+            fresh_sweep = j == 0
+            start_pos = (torch.zeros((), dtype=i32, device=dev) if fresh_sweep
+                         else state.snap_pos)
+            stratum = min((j // cfg.sweep_repeats) * tile, n - 1)
+            width = max(min(tile, n - stratum), 1)
+            u_min = stratum
+            if fresh_sweep:
+                probs_c = torch.full_like(chains.rank_probs, T.PROB_INIT)
+                carry_c = torch.zeros_like(chains.snap_carry)
+            else:
+                probs_c, carry_c = chains.rank_probs, chains.snap_carry
+            base_carry = carry_c
         else:
-            probs_c, carry_c = chains.rank_probs, chains.snap_carry
-        base_carry = carry_c
-    else:
-        start_pos = None                 # full walk
-        u_min = 0
-        probs_c = carry_c = None
-        base_carry = torch.zeros((Cn, 16), dtype=i32, device=dev)
+            start_pos = None                 # full walk
+            u_min = 0
+            probs_c = carry_c = None
+            base_carry = torch.zeros((Cn, 16), dtype=i32, device=dev)
 
-    # a fresh chain mutates at the snapshot's live position (carry slot
-    # 5), not the tile-aligned start: the snapshot boundary can fall
-    # mid-packet, and a dead-cell site would be skipped by the walk
-    fresh = chains.rec_live >= n
-    q = torch.where(fresh, base_carry[:, 5], chains.rec_live)
-    rec_ctx = torch.where(fresh, base_carry[:, 0], chains.rec_ctx)
-    rec_dists = torch.where(fresh[:, None], base_carry[:, 1:5],
-                            chains.rec_dists)
+        # a fresh chain mutates at the snapshot's live position (carry slot
+        # 5), not the tile-aligned start: the snapshot boundary can fall
+        # mid-packet, and a dead-cell site would be skipped by the walk
+        fresh = chains.rec_live >= n
+        q = torch.where(fresh, base_carry[:, 5], chains.rec_live)
+        rec_ctx = torch.where(fresh, base_carry[:, 0], chains.rec_ctx)
+        rec_dists = torch.where(fresh[:, None], base_carry[:, 1:5],
+                                chains.rec_dists)
 
-    if sched == "sweep":
-        # capture at the highest tile boundary valid for every chain of
-        # the block (all ranks of a chain group): <= every mutation site
-        # and <= every recording site
-        qmin = q.min()
-        if group is not None:
-            dist.all_reduce(qmin, op=dist.ReduceOp.MIN, group=group)
-        cap_pos = torch.clamp(qmin, max=u_min)
-        cap_pos = torch.maximum(cap_pos // tile * tile, start_pos).to(i32)
-    else:
-        cap_pos = None                   # capture the final state
+        if sched == "sweep":
+            # capture at the highest tile boundary valid for every chain of
+            # the block (all ranks of a chain group): <= every mutation site
+            # and <= every recording site
+            qmin = q.min()
+            if group is not None:
+                dist.all_reduce(qmin, op=dist.ReduceOp.MIN, group=group)
+            cap_pos = torch.clamp(qmin, max=u_min)
+            cap_pos = torch.maximum(cap_pos // tile * tile, start_pos).to(i32)
+        else:
+            cap_pos = None                   # capture the final state
 
-    # the proposal stage, one call: the key schedule, the candidates and
-    # their ranking, the two mutated cells of every row (chain-major,
-    # cfg.proposals per chain), each row's recording site (under the
-    # sweep its own site inside the shared stratum) and each chain's
-    # acceptance uniform
-    if sched == "sweep":
-        site = dict(u_lo=stratum, span=width)
-    else:
-        site = dict(span=None if cfg.site_mode == "packet" else n)
-    key_next, skey_next, mut0, mut1, u, acc_u, _ = propose_cuda.propose(
-        chains.key, state.skey, chains.slab, q, rec_ctx, rec_dists,
-        chains.rank_probs, chains.live_count, ctx, proposals=Pn,
-        top_k=cfg.top_k, sublens=cfg.sublens, lc=cfg.lc, **site)
+        # the proposal stage, one call: the key schedule, the candidates and
+        # their ranking, the two mutated cells of every row (chain-major,
+        # cfg.proposals per chain), each row's recording site (under the
+        # sweep its own site inside the shared stratum) and each chain's
+        # acceptance uniform
+        if sched == "sweep":
+            site = dict(u_lo=stratum, span=width)
+        else:
+            site = dict(span=None if cfg.site_mode == "packet" else n)
+        key_next, skey_next, mut0, mut1, u, acc_u, _ = propose_cuda.propose(
+            chains.key, state.skey, chains.slab, q, rec_ctx, rec_dists,
+            chains.rank_probs, chains.live_count, ctx, proposals=Pn,
+            top_k=cfg.top_k, sublens=cfg.sublens, lc=cfg.lc, **site)
 
-    if Pn > 1:
-        def rep(x):
-            return None if x is None else torch.repeat_interleave(x, Pn, 0)
-        slab_in, q_in = rep(chains.slab), rep(q)
-        probs_snap, carry_snap = rep(probs_c), rep(carry_c)
-    else:
-        slab_in, q_in = chains.slab, q
-        probs_snap, carry_snap = probs_c, carry_c
-    (new_slab, hi, lo, probs, rctx, rdists, rlive, count,
-     snapc) = _repair_cost(slab_in, q_in, u, ctx, cfg, mut0=mut0,
-                           mut1=mut1, start_pos=start_pos, cap_pos=cap_pos,
-                           probs_in=probs_snap, carry_in=carry_snap)
+    with span("iter.cost"):
+        if Pn > 1:
+            def rep(x):
+                return None if x is None else torch.repeat_interleave(x, Pn, 0)
+            slab_in, q_in = rep(chains.slab), rep(q)
+            probs_snap, carry_snap = rep(probs_c), rep(carry_c)
+        else:
+            slab_in, q_in = chains.slab, q
+            probs_snap, carry_snap = probs_c, carry_c
+        (new_slab, hi, lo, probs, rctx, rdists, rlive, count,
+         snapc) = _repair_cost(slab_in, q_in, u, ctx, cfg, mut0=mut0,
+                               mut1=mut1, start_pos=start_pos, cap_pos=cap_pos,
+                               probs_in=probs_snap, carry_in=carry_snap)
 
-    if Pn > 1:
-        # exact lexicographic best-of-P per chain (first index on ties)
-        hi2, lo2 = hi.reshape(Cn, Pn), lo.reshape(Cn, Pn)
-        mh = hi2.min(1, keepdim=True).values
-        w = torch.argmin(torch.where(hi2 == mh, lo2, int(fp.INF_HI)), 1)
-        rows = torch.arange(Cn, device=dev) * Pn + w
+    with span("iter.accept"):
+        if Pn > 1:
+            # exact lexicographic best-of-P per chain (first index on ties)
+            hi2, lo2 = hi.reshape(Cn, Pn), lo.reshape(Cn, Pn)
+            mh = hi2.min(1, keepdim=True).values
+            w = torch.argmin(torch.where(hi2 == mh, lo2, int(fp.INF_HI)), 1)
+            rows = torch.arange(Cn, device=dev) * Pn + w
 
-        def sel(x):
-            return x[rows]
-        new_slab, hi, lo, probs, rctx, rdists, rlive, count, snapc = (
-            sel(new_slab), sel(hi), sel(lo), sel(probs), sel(rctx),
-            sel(rdists), sel(rlive), sel(count), sel(snapc))
+            def sel(x):
+                return x[rows]
+            new_slab, hi, lo, probs, rctx, rdists, rlive, count, snapc = (
+                sel(new_slab), sel(hi), sel(lo), sel(probs), sel(rctx),
+                sel(rdists), sel(rlive), sel(count), sel(snapc))
 
-    # acceptance: first / better / cooled transition (main.c:86);
-    # "greedy" zeroes the exploratory transition, "mixed" keeps it on
-    # even global chain ids only
-    if cfg.accept == "greedy":
-        p_trans = torch.tensor(0.0, dtype=torch.float32)
-    else:
-        p_trans = _p_trans(cfg, n, state.it_in_epoch, step)
-    trans = acc_u < float(p_trans)        # the float32 value, exactly
-    if cfg.accept == "mixed":
-        gid = torch.arange(Cn, device=dev) + chain_shard(group)[0] * Cn
-        trans = trans & (gid % 2 == 0)
-    first = chains.cost_hi == int(fp.INF_HI)
-    better = fp.less(hi, lo, chains.cost_hi, chains.cost_lo)
-    accept = first | better | trans
+        # acceptance: first / better / cooled transition (main.c:86);
+        # "greedy" zeroes the exploratory transition, "mixed" keeps it on
+        # even global chain ids only
+        if cfg.accept == "greedy":
+            p_trans = torch.tensor(0.0, dtype=torch.float32)
+        else:
+            p_trans = _p_trans(cfg, n, state.it_in_epoch, step)
+        trans = acc_u < float(p_trans)        # the float32 value, exactly
+        if cfg.accept == "mixed":
+            gid = torch.arange(Cn, device=dev) + chain_shard(group)[0] * Cn
+            trans = trans & (gid % 2 == 0)
+        first = chains.cost_hi == int(fp.INF_HI)
+        better = fp.less(hi, lo, chains.cost_hi, chains.cost_lo)
+        accept = first | better | trans
 
-    new_chains = ChainState(
-        slab=torch.where(accept[:, None], new_slab, chains.slab),
-        cost_hi=torch.where(accept, hi, chains.cost_hi),
-        cost_lo=torch.where(accept, lo, chains.cost_lo),
-        rank_probs=probs, rec_ctx=rctx, rec_dists=rdists, rec_live=rlive,
-        live_count=count, key=key_next, snap_carry=snapc)
-    cap_out = (cap_pos if cap_pos is not None
-               else torch.zeros((), dtype=i32, device=dev))
+        new_chains = ChainState(
+            slab=torch.where(accept[:, None], new_slab, chains.slab),
+            cost_hi=torch.where(accept, hi, chains.cost_hi),
+            cost_lo=torch.where(accept, lo, chains.cost_lo),
+            rank_probs=probs, rec_ctx=rctx, rec_dists=rdists, rec_live=rlive,
+            live_count=count, key=key_next, snap_carry=snapc)
+        cap_out = (cap_pos if cap_pos is not None
+                   else torch.zeros((), dtype=i32, device=dev))
     return new_chains, skey_next, u_min, cap_out
 
 
@@ -388,56 +400,59 @@ def anneal_iteration(state: AnnealState, ctx: BlockContext,
 
     chains, skey_next, u_base, cap_pos = _chains_iter(state, ctx, step, cfg,
                                                       group)
-    rank, size = chain_shard(group)
+    with span("iter.best"):
+        rank, size = chain_shard(group)
 
-    # global best (reference keeps one best slab, main.c:89-92), read
-    # by index_select so that the host does not wait for the device
-    b = fp.argmin(chains.cost_hi, chains.cost_lo).reshape(1)
-    cand_hi = chains.cost_hi.index_select(0, b)[0]
-    cand_lo = chains.cost_lo.index_select(0, b)[0]
-    improved = fp.less(cand_hi, cand_lo, state.best_hi, state.best_lo)
-    best_slab = torch.where(improved, chains.slab.index_select(0, b)[0],
-                            state.best_slab)
-    best_hi = torch.where(improved, cand_hi, state.best_hi)
-    best_lo = torch.where(improved, cand_lo, state.best_lo)
-    if group is not None:
-        from ..parallel import mesh
-        best_slab, best_hi, best_lo = mesh.exchange_best(
-            best_slab, best_hi, best_lo, state.best_hi, state.best_lo, group)
+        # global best (reference keeps one best slab, main.c:89-92), read
+        # by index_select so that the host does not wait for the device
+        b = fp.argmin(chains.cost_hi, chains.cost_lo).reshape(1)
+        cand_hi = chains.cost_hi.index_select(0, b)[0]
+        cand_lo = chains.cost_lo.index_select(0, b)[0]
+        improved = fp.less(cand_hi, cand_lo, state.best_hi, state.best_lo)
+        best_slab = torch.where(improved, chains.slab.index_select(0, b)[0],
+                                state.best_slab)
+        best_hi = torch.where(improved, cand_hi, state.best_hi)
+        best_lo = torch.where(improved, cand_lo, state.best_lo)
+        if group is not None:
+            from ..parallel import mesh
+            best_slab, best_hi, best_lo = mesh.exchange_best(
+                best_slab, best_hi, best_lo, state.best_hi, state.best_lo,
+                group)
 
-    # epoch restart (main.c:70-77): step 0 from the initial parse, else
-    # from the best
-    it = state.it_in_epoch + 1
-    restart = it >= iters
-    if restart:
-        Cn = chains.slab.shape[0]
-        next_step = min((state.epochs_done + 1) // epochs_per_step,
-                        cfg.num_steps - 1)
-        reseed = (_init_rows(ctx, cfg, Cn, rank * Cn) if next_step == 0
-                  else best_slab.expand(Cn, n).contiguous())
-        zeros = torch.zeros_like(chains.rec_live)
-        chains = chains._replace(
-            slab=reseed,
-            cost_hi=torch.full_like(chains.cost_hi, int(fp.INF_HI)),
-            cost_lo=zeros, rec_ctx=zeros,
-            rec_dists=torch.zeros_like(chains.rec_dists), rec_live=zeros)
-    # sweep bookkeeping: advance the stratum; a wrap or an epoch restart
-    # resets to the fresh full-walk stratum 0
-    if sched == "sweep":
-        tile = choose_tile(n, cfg.chain_block, cfg.lc)
-        sweep_len = -(-n // tile) * cfg.sweep_repeats
-        j_next = state.sweep_j + 1
-        j_next = 0 if (j_next >= sweep_len or restart) else j_next
-    else:
-        j_next = 0
-    return AnnealState(
-        chains=chains, best_slab=best_slab, best_hi=best_hi.to(i32),
-        best_lo=best_lo.to(i32), it_in_epoch=0 if restart else it,
-        epochs_done=state.epochs_done + int(restart),
-        # the block's moves: every rank of a chain group counts them all
-        moves_done=state.moves_done
-        + chains.slab.shape[0] * cfg.proposals * size,
-        sweep_j=j_next, snap_pos=cap_pos, u_prev=u_base, skey=skey_next)
+    with span("iter.restart"):
+        # epoch restart (main.c:70-77): step 0 from the initial parse, else
+        # from the best
+        it = state.it_in_epoch + 1
+        restart = it >= iters
+        if restart:
+            Cn = chains.slab.shape[0]
+            next_step = min((state.epochs_done + 1) // epochs_per_step,
+                            cfg.num_steps - 1)
+            reseed = (_init_rows(ctx, cfg, Cn, rank * Cn) if next_step == 0
+                      else best_slab.expand(Cn, n).contiguous())
+            zeros = torch.zeros_like(chains.rec_live)
+            chains = chains._replace(
+                slab=reseed,
+                cost_hi=torch.full_like(chains.cost_hi, int(fp.INF_HI)),
+                cost_lo=zeros, rec_ctx=zeros,
+                rec_dists=torch.zeros_like(chains.rec_dists), rec_live=zeros)
+        # sweep bookkeeping: advance the stratum; a wrap or an epoch restart
+        # resets to the fresh full-walk stratum 0
+        if sched == "sweep":
+            tile = choose_tile(n, cfg.chain_block, cfg.lc)
+            sweep_len = -(-n // tile) * cfg.sweep_repeats
+            j_next = state.sweep_j + 1
+            j_next = 0 if (j_next >= sweep_len or restart) else j_next
+        else:
+            j_next = 0
+        return AnnealState(
+            chains=chains, best_slab=best_slab, best_hi=best_hi.to(i32),
+            best_lo=best_lo.to(i32), it_in_epoch=0 if restart else it,
+            epochs_done=state.epochs_done + int(restart),
+            # the block's moves: every rank of a chain group counts them all
+            moves_done=state.moves_done
+            + chains.slab.shape[0] * cfg.proposals * size,
+            sweep_j=j_next, snap_pos=cap_pos, u_prev=u_base, skey=skey_next)
 
 
 def run_iters(state: AnnealState, ctx: BlockContext, cfg: AnnealConfig,

@@ -27,6 +27,7 @@ from .parallel import multihost
 from .runtime import emit as emit_mod
 from .utils import checkpoint as ckpt_mod
 from .utils.metrics import MetricsLogger
+from .utils.profiling import span
 
 
 @dataclass
@@ -135,7 +136,8 @@ def compress_block(data: bytes, cfg: AnnealConfig,
                      else mesh_mod.gather_state(state, group))
             if lead:
                 ckpt_mod.save(checkpoint_path, whole)
-        best = engine.best_cost_bytes(state)      # waits for the device
+        with span("block.wait"):
+            best = engine.best_cost_bytes(state)  # waits for the device
         now = time.time()
         info = {
             "block": block_id,
@@ -154,8 +156,10 @@ def compress_block(data: bytes, cfg: AnnealConfig,
             metrics.log(**info)
         if lead and progress is not None:
             progress(info)
-    stream = emit_mod.emit(data, P.to_u32(state.best_slab),
-                           dict_size=cfg.dict_size, lc=cfg.lc)
+    with span("block.wait"):
+        best_slab = P.to_u32(state.best_slab)
+    stream = emit_mod.emit(data, best_slab, dict_size=cfg.dict_size,
+                           lc=cfg.lc)
     return BlockResult(stream, n, engine.best_cost_bytes(state),
                        state.moves_done, time.time() - t0)
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops import tables as T
+from ..utils.profiling import span
 from . import candidates as C_
 
 
@@ -82,7 +83,8 @@ def build_optimal_slab_native(data, tab: C_.CandidateTable, lc: int = 0,
 def seed_slab(data, cfg, index=None, wide: bool = False):
     """Config-driven optimum-parse seed — the single function behind
     both engine.make_context and the compressor's DP-only mode, so their
-    seeds can never drift.
+    seeds can never drift.  Its two stages run in the profiler spans
+    seed.candidates (the seed's own, wider candidate table) and seed.dp.
 
     Returns (slab, dists): dists is the full-width distance array of a
     wide (> 1 MiB) block, None otherwise.  The native library is built
@@ -93,8 +95,10 @@ def seed_slab(data, cfg, index=None, wide: bool = False):
     if index is None:
         from .suffix import build_lce
         index = build_lce(data)
-    tab = C_.build_candidates(data, cfg.opt_candidates, cfg.opt_walk,
-                              index)
-    return build_optimal_slab_native(
-        data, tab, lc=cfg.lc, passes=cfg.opt_passes,
-        win_size=cfg.opt_window, index=index, wide=wide)
+    with span("seed.candidates"):
+        tab = C_.build_candidates(data, cfg.opt_candidates, cfg.opt_walk,
+                                  index)
+    with span("seed.dp"):
+        return build_optimal_slab_native(
+            data, tab, lc=cfg.lc, passes=cfg.opt_passes,
+            win_size=cfg.opt_window, index=index, wide=wide)

@@ -15,6 +15,7 @@ import functools
 import numpy as np
 
 from ..ops import bitplan, emit_plan, tables as T
+from ..utils.profiling import span
 from . import build, pyemit
 
 
@@ -77,12 +78,14 @@ def emit(data: bytes, slab: np.ndarray, dict_size: int = 0x400000,
     dists: the full-width distances of a wide (> 1 MiB) block.  Those
     blocks go through pyemit, the only emitter that has them: the op
     stream and the native range coder read the packed 20-bit dist field,
-    so for wide blocks pyemit is the emitter, not a fallback."""
-    if dists is not None:
-        return pyemit.emit(data, slab, dict_size=dict_size, lc=lc,
-                           dists=dists)
-    _, idx, bit, active, n_direct, direct_val = emit_plan.emit_plan(
-        slab, data, lc=lc)
-    header = pyemit.lzma_header(len(data), lc=lc, dict_size=dict_size)
-    return emit_from_opstream(idx, bit, active, n_direct, direct_val,
-                              header, lc=lc)
+    so for wide blocks pyemit is the emitter, not a fallback.  The call
+    runs in the profiler span `emit`."""
+    with span("emit"):
+        if dists is not None:
+            return pyemit.emit(data, slab, dict_size=dict_size, lc=lc,
+                               dists=dists)
+        _, idx, bit, active, n_direct, direct_val = emit_plan.emit_plan(
+            slab, data, lc=lc)
+        header = pyemit.lzma_header(len(data), lc=lc, dict_size=dict_size)
+        return emit_from_opstream(idx, bit, active, n_direct, direct_val,
+                                  header, lc=lc)

@@ -31,15 +31,6 @@ class MetricsLogger:
             with open(self.jsonl_path, "a") as f:
                 f.write(json.dumps(record) + "\n")
 
-    def moves_per_sec(self) -> float:
-        """Moves per second between the first and the last record."""
-        if len(self.history) < 2:
-            return 0.0
-        a, b = self.history[0], self.history[-1]
-        dm = b.get("moves", 0) - a.get("moves", 0)
-        dt = b["t"] - a["t"]
-        return dm / dt if dt > 0 else 0.0
-
 
 def stderr_logger(jsonl_path: Optional[str] = None) -> MetricsLogger:
     return MetricsLogger(stream=sys.stderr, jsonl_path=jsonl_path)

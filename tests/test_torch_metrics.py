@@ -1,5 +1,5 @@
 """megalania_tpu_torch.utils.metrics and .profiling on the CPU: per-segment
-JSONL records from compress_block, step timing, named regions and a
+JSONL records from compress_block, step timing, named spans and a
 written trace."""
 import io
 import json
@@ -29,7 +29,6 @@ def test_metrics_jsonl(tmp_path):
     assert [r["iter"] for r in recs] == [4, 8]
     assert recs[-1]["iter"] == recs[-1]["iters"]
     assert recs[-1]["moves"] == 64
-    assert m.moves_per_sec() >= 0.0
 
 
 def test_stderr_logger_lines(monkeypatch):
@@ -42,7 +41,7 @@ def test_stderr_logger_lines(monkeypatch):
 def test_step_timer_and_annotate():
     m = MetricsLogger()
     with profiling.step_timer("matmul", sink=m) as holder:
-        with profiling.annotate("region"):
+        with profiling.span("region"):
             x = torch.ones(64, 64)
             holder["result"] = (x @ x, x)
     assert holder["seconds"] > 0
@@ -53,7 +52,7 @@ def test_step_timer_and_annotate():
 def test_trace_writes_chrome_trace(tmp_path):
     d = str(tmp_path / "trace")
     with profiling.trace(d) as prof:
-        with profiling.annotate("meg_region"):
+        with profiling.span("meg_region"):
             torch.ones(32).cumsum(0)
     path = os.path.join(d, "trace.json")
     assert os.path.getsize(path) > 0
