@@ -16,7 +16,10 @@ this run's inputs); beside the log2 correction kernel it prints the
 card's launch floor (the device time of a one-element fill) and the host
 time of one log2_correction call; it also times the repair kernel's full
 walk per packet, and holds the repair kernel with the block's bytes in device
-memory (a 256 KiB block) against its plain version.  Later phases drive
+memory (a 256 KiB block) against its plain version; it holds the
+candidate-table kernel to the numpy builder (torch.equal) at the main
+path's block for both of a context's tables, the annealer's and the
+seed's, and times it against numpy's host time.  Later phases drive
 the other paths on the card: an interrupted and resumed 64 KiB block
 against the uninterrupted one, the whole-parse cost (scan_cost) against
 the native cost, the chain-sharded anneal over a one-rank NCCL group
@@ -32,7 +35,8 @@ the reference's move budget: the bytes must be the ones the JAX package
 recorded (BENCH_r05.json, BENCH_CORPUS.json), and phase 15 holds the
 repair and proposal kernels at the headline shape (n=2,048, 512
 chains).  Each phase prints one line; the kernels' entry also gives
-their launches on every path driven.  The last
+their launches on every path driven: the candidate kernel's are two per
+block context under init=optimal and one under greedy or mixed.  The last
 lines are the card's name and power limit (nvidia-smi), a JSON object
 with one entry per kernel, and {"ok": true, "device": {...}}.  Any
 failed check raises: the script then
@@ -290,11 +294,13 @@ def main() -> int:
     from megalania_tpu_torch import cli, compressor
     from megalania_tpu_torch.anneal import engine
     from megalania_tpu_torch.anneal.config import AnnealConfig
+    from megalania_tpu_torch.match import candidates as C_
     from megalania_tpu_torch.match import optparse_native
+    from megalania_tpu_torch.match.suffix import build_lce
     from megalania_tpu_torch.models import packets as P
-    from megalania_tpu_torch.ops import (log2_cuda, problayout,
-                                         propose_cuda, repair_cuda,
-                                         tables as T)
+    from megalania_tpu_torch.ops import (candidates_cuda, log2_cuda,
+                                         problayout, propose_cuda,
+                                         repair_cuda, tables as T)
     from megalania_tpu_torch.runtime import build
     from megalania_tpu_torch.utils import fixedpoint as fp
 
@@ -313,6 +319,10 @@ def main() -> int:
         "propose": dict(source="megalania_tpu_torch/csrc/propose.cu",
                         replaces="megalania_tpu/ops/pallas_rank.py:57",
                         fn=propose_cuda.propose_cuda),
+        "candidates": dict(source="megalania_tpu_torch/csrc/candidates.cu",
+                           replaces="no TPU kernel: host numpy, "
+                                    "megalania_tpu/match/candidates.py:45",
+                           fn=candidates_cuda.candidates_cuda),
     }
 
     # ---- 1. device ---------------------------------------------------
@@ -336,7 +346,8 @@ def main() -> int:
     names = (("repair_kernelILb1E", "repair_kernel<bytes in smem>"),
              ("repair_kernelILb0E", "repair_kernel<bytes in global>"),
              ("propose_kernel", "propose_kernel"),
-             ("log2_correction", "log2_correction_kernel"))
+             ("log2_correction", "log2_correction_kernel"),
+             ("candidates_kernel", "candidates_kernel"))
     regs = {next((nm for key, nm in names if key in e), e): " ".join(
         re.sub(r"ptxas info\s*:|Function properties for \w+", "",
                txt).split()) for e, txt in entries}
@@ -569,6 +580,8 @@ def main() -> int:
         check(cnt > 0, f"{name} launched on the main path ({cnt})")
     check(launches["propose"] == total_moves // C,
           f"one proposal launch per iteration ({launches['propose']})")
+    check(launches["candidates"] == 2 * launches["log2_probe"],
+          f"two candidate tables a context under init=optimal ({launches})")
     check(moves_done == total_moves, f"moves {moves_done} == {total_moves}")
     say("main_path", bytes_in=len(data), bytes_out=len(blob),
         dp_only_bytes=dp_len, predicted=predicted,
@@ -733,7 +746,47 @@ def main() -> int:
     kernels["log2_probe"]["bound_ms"], kernels["log2_probe"][
         "bound_by"] = bound(2048 * 4 + (128 + 2) * 4, 4 * 2048,
                             F32_OPS_PER_S)
-    # no single PyTorch call computes any of the three functions
+    # the candidate-table kernel at the main path's block, for both of a
+    # context's tables (the annealer's and the optimum-parse seed's), on
+    # the index and bigram chains make_context uploads: torch.equal to
+    # the numpy builder (plain_ms: its host time); the bound reads the
+    # chains and the index once and writes the table once.  The kernels
+    # row gives one context's two tables together
+    arr64 = np.frombuffer(data, np.uint8)
+    idx64 = build_lce(arr64)
+    cargs = [torch.as_tensor(a, device=dev) for a in (
+        C_.bigram_prev(arr64).astype(np.int32), idx64.rank, idx64.sparse)]
+    tables8 = {}
+    for M8, walk8 in ((cfg8.max_candidates, cfg8.max_walk),
+                      (cfg8.opt_candidates, cfg8.opt_walk)):
+        def cand(M8=M8, walk8=walk8):
+            return candidates_cuda.candidates_cuda(*cargs, M8, walk8)
+        got = cand()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = C_.build_candidates(arr64, M8, walk8, idx64)
+        plain8 = (time.perf_counter() - t) * 1e3
+        check(all(torch.equal(g.cpu(), torch.from_numpy(w))
+                  for g, w in zip(got, want)),
+              f"candidate kernel == numpy table (torch.equal) at "
+              f"{M8} x {walk8}, n={n64}")
+        nbytes = 4 * (sum(a.numel() for a in cargs) + (2 * M8 + 1) * n64)
+        tables8[f"{M8}x{walk8}"] = dict(
+            ms=device_ms(cand, 20, 5, kernel="candidates_kernel"),
+            call_ms=cuda_ms(cand, 20), plain_ms=plain8,
+            bound_ms=bound(nbytes, 0, I32_OPS_PER_S)[0], bytes=nbytes,
+            entries_per_row=float(want.count.mean()),
+            max_count=int(want.count.max()))
+    kc = kernels["candidates"]
+    kc["max_abs_err"] = 0
+    for f in ("ms", "call_ms", "plain_ms", "bound_ms"):
+        kc[f] = sum(t8[f] for t8 in tables8.values())
+    kc["bound_by"] = "bytes"
+    kc["tables"] = tables8
+    say("candidates", n=n64, tolerance=0, equal=True,
+        **{f"t{k}_{f}": v for k, t8 in tables8.items()
+           for f, v in t8.items()})
+    # no single PyTorch call computes any of the four functions
     for k in kernels.values():
         k["library_ms"] = None
     say("times", tolerance=0,
@@ -761,10 +814,17 @@ def main() -> int:
 
     by_path = {"main_path": launches}
 
-    def launched(path: str) -> dict:
+    def launched(path: str, tables: int | None = 2) -> dict:
+        """The launches since reset(); `tables`: candidate tables a
+        context (one log2 correction each), 2 under init=optimal, 1
+        under greedy or mixed, None where the inits are mixed."""
         counts = {name: k["fn"].launches for name, k in kernels.items()}
         for name, cnt in counts.items():
             check(cnt > 0, f"{name} launched on the {path} path ({cnt})")
+        if tables is not None:
+            check(counts["candidates"] == tables * counts["log2_probe"],
+                  f"{tables} candidate table(s) a context on the {path} "
+                  f"path: {counts}")
         by_path[path] = counts
         return counts
 
@@ -862,7 +922,7 @@ def main() -> int:
         c11 = engine.make_context(block, cfg11, dev)
         s11 = engine.init_state(c11, cfg11, m.chain_group)
         s11 = mesh_mod.sharded_run(s11, c11, cfg11, 8, m)
-        counts11 = launched("distributed")
+        counts11 = launched("distributed", 1)
         ref11 = engine.run_iters(engine.init_state(c11, cfg11), c11, cfg11,
                                  8)
         same_state(engine.state_to_numpy(s11), engine.state_to_numpy(ref11),
@@ -907,7 +967,8 @@ def main() -> int:
               == data12[bi << 16:(bi + 1) << 16], f"stream {bi} decodes")
     check(counts12["log2_probe"] == blocks12
           and counts12["propose"] == blocks12 * iters12
-          and counts12["repair_cost"] == blocks12 * (iters12 + 1),
+          and counts12["repair_cost"] == blocks12 * (iters12 + 1)
+          and counts12["candidates"] == 2 * blocks12,
           f"one context per block, {iters12} iterations each: {counts12}")
     alloc12 = [b["allocated_bytes"] for b in res12["per_block"]]
     check(max(alloc12) - min(alloc12) < 16 << 20,
@@ -973,7 +1034,7 @@ def main() -> int:
     with contextlib.redirect_stdout(io.StringIO()):
         res13 = r64k.main([str(iters13 * C13), str(C13), "3", "mixed",
                            "greedy", "-o", out13])
-    counts13 = launched("block_64k_lc3")
+    counts13 = launched("block_64k_lc3", 1)
     data13 = r64k.corpus(65536)
     blob13 = open(out13, "rb").read()
     check(res13["decode_ok"] and lzma.decompress(
@@ -1079,15 +1140,16 @@ def main() -> int:
         t = time.time()
         rows15[key] = bench_torch.measure(n15, C15, it15, init=init15)
         rows15[key]["row_seconds"] = time.time() - t
-    counts15 = launched("bench")
+    counts15 = launched("bench", None)
     rows_seconds15 = time.time() - t15
     iters15 = sum(r["iters"] for r in rows15.values())
     check([r["iters"] for r in rows15.values()] == [512, 512, 512],
           "512 iterations a window in every row (tile 256 at n=2,048 is "
           "32 a sweep; tile 512 at n=65,536 is 512)")
     check(counts15 == {"log2_probe": 3, "repair_cost": 2 * iters15 + 3,
-                       "propose": 2 * iters15},
-          f"one context per row, one launch per iteration: {counts15}")
+                       "propose": 2 * iters15, "candidates": 1 + 1 + 2},
+          f"one context per row, one launch per iteration, one candidate "
+          f"table under mixed and two under optimal: {counts15}")
     for key, _, _, _, want in plan15:
         if want:
             got = "%.2f" % rows15[key]["best_bytes"]
@@ -1174,8 +1236,9 @@ def main() -> int:
         check(r["xz9e"]["bytes"] == xz, f"{name}: liblzma 9e "
               f"{r['xz9e']['bytes']} B == the recorded xz -9e {xz} B")
     check(counts16 == {"log2_probe": 8, "repair_cost": 4 * (iters16 + 3),
-                       "propose": 4 * (iters16 + 1)},
-          f"two contexts a file, one launch per iteration: {counts16}")
+                       "propose": 4 * (iters16 + 1), "candidates": 2 * 8},
+          f"two contexts a file, one launch per iteration, two candidate "
+          f"tables a context: {counts16}")
     def per_file(col: str, field: str) -> str:
         return json.dumps({k: r[col][field] for k, r in rows16.items()}
                           ).replace(" ", "")
@@ -1197,7 +1260,8 @@ def main() -> int:
              "call_ms": k["call_ms"],
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
              "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-             **{x: k[x] for x in ("launch_floor_ms", "host_ms") if x in k}}
+             **{x: k[x] for x in ("launch_floor_ms", "host_ms", "tables")
+                if x in k}}
             for name, k in kernels.items()]
     print(smi)
     print(json.dumps({"kernels": rows}))

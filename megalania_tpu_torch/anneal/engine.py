@@ -46,7 +46,8 @@ import torch.distributed as dist
 from ..match import candidates as C_
 from ..match.suffix import build_lce
 from ..models import packets as P
-from ..ops import log2_cuda, problayout, propose_cuda, repair_cuda
+from ..ops import (candidates_cuda, log2_cuda, problayout, propose_cuda,
+                   repair_cuda)
 from ..ops import tables as T
 from ..utils import fixedpoint as fp
 from ..utils import threefry as R
@@ -132,27 +133,29 @@ def effective_schedule(cfg: AnnealConfig) -> str:
 
 
 def make_context(data: bytes, cfg: AnnealConfig, device) -> BlockContext:
-    """Host-side block preprocessing (LCE index, candidate table, initial
-    parse) and the device's log2 correction; tensors on `device`.  The
-    index and the annealer's candidate table run in the profiler span
+    """Block preprocessing (LCE index, candidate tables, initial parse)
+    and the device's log2 correction; tensors on `device`.  The index is
+    built on the host and uploaded once; the candidate tables are built
+    on `device` (ops/candidates_cuda: the kernel on cuda).  The index and
+    the annealer's candidate table run in the profiler span
     context.index, the optimum-parse seed in its own two."""
     device = torch.device(device)
     arr = np.frombuffer(bytes(data), np.uint8)
     with span("context.index"):
         idx = build_lce(arr)
-        tab = C_.build_candidates(arr, cfg.max_candidates, cfg.max_walk,
-                                  idx)
+        idx = idx._replace(rank=torch.as_tensor(idx.rank, device=device),
+                           sparse=torch.as_tensor(idx.sparse, device=device))
+        tab = candidates_cuda.candidate_table(
+            arr, cfg.max_candidates, cfg.max_walk, idx.rank, idx.sparse)
     if cfg.init in ("optimal", "mixed_opt"):
         from ..match import optparse
         init_slab, _ = optparse.seed_slab(arr, cfg, index=idx)
     elif cfg.init in ("greedy", "mixed"):
-        init_slab = C_.greedy_slab(arr, tab)
+        init_slab = C_.greedy_slab(arr, candidates_cuda.to_numpy(tab))
     else:
         init_slab = P.literal_slab(len(arr))
-    return context_from_numpy(
-        data=arr.astype(np.int32), rank=idx.rank, sparse=idx.sparse,
-        cand_dist=tab.dist, cand_len=tab.length, cand_count=tab.count,
-        init_slab=init_slab, lc=cfg.lc, device=device)
+    return _block_context(arr, idx.rank, idx.sparse, tab, init_slab, cfg.lc,
+                          device)
 
 
 def context_from_numpy(*, data, rank, sparse, cand_dist, cand_len,
@@ -163,19 +166,29 @@ def context_from_numpy(*, data, rank, sparse, cand_dist, cand_len,
     always built by `device`'s own float32 path (one kernel launch on
     cuda)."""
     device = torch.device(device)
+    return _block_context(
+        data, _i32(rank, device), _i32(sparse, device),
+        C_.CandidateTable(*(_i32(a, device)
+                            for a in (cand_dist, cand_len, cand_count))),
+        init_slab, lc, device)
 
-    def t(a):
-        return torch.as_tensor(np.array(a, np.int32),
-                               device=device)
-    log2 = t(T.LOG2_TABLE_I32)
+
+def _i32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, np.int32), device=device)
+
+
+def _block_context(data, rank, sparse, tab, init_slab, lc: int,
+                   device) -> BlockContext:
+    """The BlockContext of the bytes `data` (numpy), with the index and
+    the candidate table already on `device`, and init_slab (uint32)."""
+    log2 = _i32(T.LOG2_TABLE_I32, device)
     return BlockContext(
-        data=t(data),
+        data=_i32(data, device),
         data_u8=torch.as_tensor(np.array(data, np.uint8), device=device),
-        rank=t(rank), sparse=t(sparse),
-        cand_dist=t(cand_dist), cand_len=t(cand_len),
-        cand_count=t(cand_count), log2=log2,
+        rank=rank, sparse=sparse, cand_dist=tab.dist, cand_len=tab.length,
+        cand_count=tab.count, log2=log2,
         corr=log2_cuda.log2_correction(log2),
-        f2p=t(problayout.get_layout(lc).F2P_PAD),
+        f2p=_i32(problayout.get_layout(lc).F2P_PAD, device),
         init_slab=P.from_u32(init_slab, device), device=device)
 
 

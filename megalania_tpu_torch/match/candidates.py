@@ -11,7 +11,8 @@ available nearer, and distance only ever costs more bits).  Rep-distance
 eligibility (the reference's long-rep enumeration) is recovered at anneal
 time from the rep stack via O(1) LCE queries, so it needs no table.
 
-Build is vectorized numpy over bounded chain-walk rounds.
+Build is vectorized numpy over bounded chain-walk rounds; on the card
+ops/candidates_cuda builds the same table, bit for bit.
 """
 from __future__ import annotations
 

@@ -85,6 +85,11 @@ def seed_slab(data, cfg, index=None, wide: bool = False):
     both engine.make_context and the compressor's DP-only mode, so their
     seeds can never drift.  Its two stages run in the profiler spans
     seed.candidates (the seed's own, wider candidate table) and seed.dp.
+    index: the block's LCE index (suffix.build_lce), built here if None.
+    Where its rank and sparse are tensors on a device (make_context's
+    upload), the table is built there (ops/candidates_cuda: the kernel
+    on cuda) and downloaded once for the DP, with the index; numpy
+    arrays keep the numpy builder on the host.
 
     Returns (slab, dists): dists is the full-width distance array of a
     wide (> 1 MiB) block, None otherwise.  The native library is built
@@ -96,8 +101,15 @@ def seed_slab(data, cfg, index=None, wide: bool = False):
         from .suffix import build_lce
         index = build_lce(data)
     with span("seed.candidates"):
-        tab = C_.build_candidates(data, cfg.opt_candidates, cfg.opt_walk,
-                                  index)
+        if isinstance(index.rank, np.ndarray):
+            tab = C_.build_candidates(data, cfg.opt_candidates, cfg.opt_walk,
+                                      index)
+        else:
+            from ..ops import candidates_cuda
+            tab = candidates_cuda.to_numpy(candidates_cuda.candidate_table(
+                data, cfg.opt_candidates, cfg.opt_walk, index.rank,
+                index.sparse))
+            index = candidates_cuda.host_index(index.rank, index.sparse)
     with span("seed.dp"):
         return build_optimal_slab_native(
             data, tab, lc=cfg.lc, passes=cfg.opt_passes,

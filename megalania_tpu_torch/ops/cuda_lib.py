@@ -22,6 +22,7 @@ _SIGNATURES = {
     "meg_log2_correction": [_P, _P, _P],
     "meg_repair": [_P] * 17 + [_I] * 9 + [_P, _P],
     "meg_propose": [_P] * 22 + [_I] * 15 + [_P, _P],
+    "meg_candidates": [_P] * 3 + [_I] * 3 + [_P] * 4,
 }
 
 

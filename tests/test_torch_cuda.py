@@ -10,10 +10,15 @@ import numpy as np
 import pytest
 import torch
 
+from candidate_cases import CASES, block, index, numpy_table
 from megalania_tpu_torch.anneal import engine
 from megalania_tpu_torch.anneal.config import AnnealConfig
+from megalania_tpu_torch.match import candidates as C_
+from megalania_tpu_torch.match import optparse
+from megalania_tpu_torch.match.suffix import build_lce
 from megalania_tpu_torch.models import packets as P
-from megalania_tpu_torch.ops import log2_cuda, propose_cuda, repair_cuda
+from megalania_tpu_torch.ops import (candidates_cuda, log2_cuda, propose_cuda,
+                                     repair_cuda)
 from megalania_tpu_torch.ops import tables as T
 
 pytestmark = pytest.mark.cuda
@@ -172,3 +177,44 @@ def test_engine_cuda_equals_cpu(dev, config):
     for f in out[0]:
         if f != "chains":
             np.testing.assert_array_equal(out[0][f], out[1][f], err_msg=f)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_candidates_kernel_equals_numpy(dev, case):
+    """The kernel's table is the numpy builder's, bit for bit."""
+    name, M, walk = CASES[case]
+    idx = index(name)
+    before = candidates_cuda.candidates_cuda.launches
+    got = candidates_cuda.candidate_table(
+        block(name), M, walk, torch.as_tensor(idx.rank, device=dev),
+        torch.as_tensor(idx.sparse, device=dev))
+    assert (candidates_cuda.candidates_cuda.launches
+            == before + (len(block(name)) >= 2))
+    for g, w in zip(got, numpy_table(case)):
+        assert g.is_cuda
+        assert torch.equal(g.cpu(), torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("init,kernels", [("optimal", 2), ("mixed", 1)])
+def test_make_context_on_card_equals_host(dev, init, kernels):
+    """make_context on the card builds the same BlockContext as the
+    host's numpy arrays through context_from_numpy, with one candidate
+    kernel for the annealer's table and one for the seed's."""
+    data = np.frombuffer(
+        open(os.path.join(ROOT, "tools", "corpus", "libc.so"),
+             "rb").read()[:16384], np.uint8)
+    cfg = AnnealConfig(chains=C, init=init)
+    before = candidates_cuda.candidates_cuda.launches
+    got = engine.make_context(data, cfg, dev)
+    assert candidates_cuda.candidates_cuda.launches == before + kernels
+    idx = build_lce(data)
+    tab = C_.build_candidates(data, cfg.max_candidates, cfg.max_walk, idx)
+    slab = (optparse.seed_slab(data, cfg, index=idx)[0] if init == "optimal"
+            else C_.greedy_slab(data, tab))
+    want = engine.context_from_numpy(
+        data=data.astype(np.int32), rank=idx.rank, sparse=idx.sparse,
+        cand_dist=tab.dist, cand_len=tab.length, cand_count=tab.count,
+        init_slab=slab, lc=cfg.lc, device=dev)
+    for f in engine.BlockContext._fields:
+        if f != "device":
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
