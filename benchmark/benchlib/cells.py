@@ -6,9 +6,10 @@ A driver returns a dict: `e2e` (end-to-end values), `obs` (what the
 per-layer readers read), `device` (peak memory, and busy and window
 seconds of the traced stretch), `breakdown`, `checks`, `judged` (the
 blocks, their streams and the engine's costs that the check compared),
-`setup_end`
-(wall-clock time at which the window opened) and `jax` (modules of the
-JAX stack found loaded).
+`answer` and `units` (anneal cells: what every chain rank must agree
+on, and the window's segments),
+`setup_end` (wall-clock time at which the window opened) and `jax`
+(modules of the JAX stack found loaded).
 """
 from __future__ import annotations
 
@@ -52,8 +53,11 @@ def _reduce(prof, wall: float, scope: str, iters: int) -> dict:
     for e in prof.events():
         span = (e.name, float(e.time_range.start), float(e.time_range.end))
         if e.device_type == DeviceType.CUDA:
-            # the device's copies of the harness's spans are no operations
-            if not e.name.startswith(SPAN):
+            # the device's copies of host annotations (the harness's spans,
+            # the process group's "nccl:<collective>" ranges) are no
+            # operations
+            if not (e.name.startswith(SPAN)
+                    or getattr(e, "is_user_annotation", False)):
                 dev.append(span)
         elif e.name == STRETCH:
             marks.append((span, e.thread))
@@ -63,21 +67,28 @@ def _reduce(prof, wall: float, scope: str, iters: int) -> dict:
     thread = None
     if marks:
         (_, t0, t1), thread = marks[0]
+    # what ran before the stretch opened (the ranks' meeting) is not of it
+    dev = [d for d in dev if d[1] >= t0]
     host = [h[:3] for h in host if h[3] == thread and h[1] >= t0]
     return {"scope": scope, "iters": iters, "wall_s": wall, "dev": dev,
             "host": host, "t0": t0, "t1": t1}
 
 
 @contextlib.contextmanager
-def profiled(obs: dict, scope: str, iters: int, dev):
+def profiled(obs: dict, scope: str, iters: int, dev, agree=None):
     """Profile the enclosed stretch (host and device) into obs["profile"];
-    its wall time is taken between two device synchronisations."""
+    its wall time is taken between two device synchronisations.  With
+    `agree` (a cell of several cards) the ranks meet once their
+    profilers run, so that none waits in the stretch's first collective
+    for another's profiler to start."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         _sync(dev)
+        if agree is not None:
+            agree(False)
         with torch.profiler.record_function(STRETCH):
             t0 = time.perf_counter()
             yield
@@ -201,38 +212,103 @@ class MoveWatch:
         return int(sum(int(c) for c in self.counts))
 
 
+class CaptureCount:
+    """The all-reduces MIN over the chain group (the capture position's,
+    engine._chains_iter, one an iteration under the sweep schedule), by
+    a wrapper on torch.distributed.all_reduce: the program keeps no
+    counter of them, as it does of mesh.exchange_best's gathers."""
+
+    def __init__(self, group):
+        self.group = group
+        self.calls = 0
+
+    def wrap(self, orig):
+        import torch.distributed as dist
+
+        def wrapper(tensor, *a, **kw):
+            if (kw.get("group") is self.group
+                    and kw.get("op") == dist.ReduceOp.MIN):
+                self.calls += 1
+            return orig(tensor, *a, **kw)
+        return wrapper
+
+
+def _agree(done: bool, group, dev) -> bool:
+    """True on every rank of `group` once any of them is done (an
+    all-reduce of the flag)."""
+    import torch.distributed as dist
+    flag = torch.tensor([int(done)], dtype=torch.int32, device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag.item())
+
+
 def anneal_block(conf: dict, mix: dict, seed: int, seconds: float,
-                 trace: bool, dev) -> dict:
+                 trace: bool, dev, group=None) -> dict:
     """Anneal one block from its initial parse in segments of
     `segment_iters` iterations (engine.run_iters) until the window
-    closes; then emit the best parse (runtime.emit.emit)."""
+    closes; then emit the best parse (runtime.emit.emit).
+
+    With a chain group (parallel.mesh) this process holds its rank's
+    share of the chains, as compressor.compress_block runs it: the
+    ranks open the window together, agree after every segment whether
+    it has closed, and each checks its own rows, best and stream, and
+    that every iteration ran the group's best exchange
+    (mesh.exchange_best's gathers) and capture all-reduce
+    (CaptureCount)."""
+    data = traffic_mod.data(mix)
+    cfg = anneal_config(conf, seed)
+    stack = contextlib.ExitStack()
+    if group is not None:
+        import torch.distributed as dist
+        from megalania_tpu_torch.parallel import mesh
+        gathers = mesh.exchange_best.scalar_gathers
+        captures = CaptureCount(group)
+        stack.enter_context(patched(dist, "all_reduce", captures.wrap))
+    with stack:
+        out = _anneal_block(conf, mix, seed, seconds, trace, dev, group,
+                            data, cfg)
+    done = out.pop("iters_done")
+    if group is not None:
+        # every iteration run exchanged the best and captured at the
+        # block's lowest site over all the chain ranks
+        out["checks"]["exchange_gap"] = abs(
+            done - (mesh.exchange_best.scalar_gathers - gathers))
+        out["checks"]["capture_gap"] = abs(done - captures.calls)
+    return out
+
+
+def _anneal_block(conf, mix, seed, seconds, trace, dev, group, data, cfg):
     from megalania_tpu_torch.anneal import engine
     from megalania_tpu_torch.models import packets as P
     from megalania_tpu_torch.ops import repair_cuda
     from megalania_tpu_torch.runtime import emit as emit_mod
     from megalania_tpu_torch.utils import fixedpoint as fp
 
-    data = traffic_mod.data(mix)
-    cfg = anneal_config(conf, seed)
     ctx = engine.make_context(data, cfg, dev)
-    state = engine.init_state(ctx, cfg)
-    state = engine.run_iters(state, ctx, cfg, mix["warmup_iters"])
+    state = engine.init_state(ctx, cfg, group)
+    state = engine.run_iters(state, ctx, cfg, mix["warmup_iters"], group)
     _sync(dev)
     seg = mix["segment_iters"]
 
     def unit():
         nonlocal state
-        state = engine.run_iters(state, ctx, cfg, seg)
+        state = engine.run_iters(state, ctx, cfg, seg, group)
         _sync(dev)
 
+    agree = None
+    if group is not None:
+        def agree(done):
+            return _agree(done, group, dev)
+        agree(False)                    # the ranks open the window together
     watch = MoveWatch()
     setup_end = time.time()
     with patched(engine, "anneal_iteration", watch.wrap):
-        units, elapsed = window.run_window(unit, seconds)
+        units, elapsed = window.run_window(unit, seconds, agree=agree)
     jax = forbidden_modules()
     unmoved = watch.unmoved()
     iters = seg * len(units)
     out = {"setup_end": setup_end, "jax": jax, "device": {}, "obs": {},
+           "units": len(units),
            "e2e": {"moves_per_s": window.rate(
                window.moves(cfg.chains, cfg.proposals, iters), elapsed)}}
     done = mix["warmup_iters"] + iters
@@ -243,8 +319,8 @@ def anneal_block(conf: dict, mix: dict, seed: int, seconds: float,
         k = mix["profile_iters"]
         with patched(repair_cuda, "repair_cost_cuda",
                      _recording_launches(obs)), \
-                profiled(obs, "iterations", k, dev):
-            state = engine.run_iters(state, ctx, cfg, k)
+                profiled(obs, "iterations", k, dev, agree):
+            state = engine.run_iters(state, ctx, cfg, k, group)
         done += k
         _finish_launches(obs)
         _trace_outputs(out, obs)
@@ -255,7 +331,6 @@ def anneal_block(conf: dict, mix: dict, seed: int, seconds: float,
     # the outputs: best parse, its cost, a sample of chains, the moves
     best = P.to_u32(state.best_slab)
     best_cost = fp.to_int(state.best_hi, state.best_lo)
-    out["best"] = (best_cost, hashlib.sha256(best.tobytes()).hexdigest())
     rng = np.random.default_rng(int(seed))
     rows = rng.choice(state.chains.slab.shape[0],
                       size=min(mix["check_chains"],
@@ -279,10 +354,13 @@ def anneal_block(conf: dict, mix: dict, seed: int, seconds: float,
     checks.update(check.chains(data, sample, cfg.lc))
     stream = emit_mod.emit(data, best, dict_size=cfg.dict_size, lc=cfg.lc)
     out["e2e"]["out_bytes"] = len(stream)
+    out["answer"] = (best_cost, hashlib.sha256(best.tobytes()).hexdigest(),
+                     hashlib.sha256(stream).hexdigest())
     checks.update(check.streams([data], [stream], [best_cost]))
     out["judged"] = ([data], [stream], [best_cost])
     out["outputs"] = 1
     out["checks"] = checks
+    out["iters_done"] = done
     return out
 
 
@@ -293,9 +371,12 @@ def _block_cost(res) -> int:
 
 
 def file(conf: dict, mix: dict, seed: int, seconds: float, trace: bool,
-         dev) -> dict:
+         dev, group=None) -> dict:
     """Compress the whole file (compressor.compress) again and again
-    until the window closes; every file of a run has the run's seed."""
+    until the window closes; every file of a run has the run's seed.
+    One card: it takes no chain group."""
+    if group is not None:
+        raise ValueError("the file driver runs on one card")
     from megalania_tpu_torch import compressor
     from megalania_tpu_torch.anneal import engine
     from megalania_tpu_torch.runtime import emit as emit_mod

@@ -25,7 +25,24 @@ and every limit is 0 (PERF.md gives the readings behind each):
                    so a step that leaves them as they were, or anneals
                    only some of them, shows here;
   outputs_differ   outputs of one file in one run that differ from the
-                   first (the same input and seed give the same bytes).
+                   first (the same input and seed give the same bytes);
+  ranks_disagree   in a cell of several cards, the ranks whose answer
+                   (the best parse's cost, the sha256 of the best parse
+                   and of the stream it emitted) differs from rank 0's:
+                   every chain rank of a block holds the block's best;
+  exchange_gap     in a cell of several cards, |iterations run - the
+                   best exchanges made (mesh.exchange_best's own
+                   counter)|, the widest over the ranks: from the DP
+                   seed no chain beats the initial best, so every rank
+                   holds the same best with no exchange at all, and
+                   only the count shows one left out or thinned;
+  capture_gap      the same for the capture position's all-reduce MIN
+                   over the chain ranks (cells.CaptureCount), one an
+                   iteration under the sweep schedule.
+
+In a cell of several cards each rank checks its own outputs (its stream,
+its sampled chains, its moves) and `fold` joins the ranks' numbers:
+counts are summed, gaps take the widest.
 """
 from __future__ import annotations
 
@@ -38,7 +55,10 @@ LIMITS = {
     "decode_errors": 0, "lzma_errors": 0, "best_cost_gap": 0,
     "chain_errors": 0, "chain_cost_gap": 0, "chains_uncosted": 0,
     "moves_gap": 0, "chains_unmoved": 0, "outputs_differ": 0,
+    "ranks_disagree": 0, "exchange_gap": 0, "capture_gap": 0,
 }
+GAPS = ("best_cost_gap", "chain_cost_gap", "moves_gap", "exchange_gap",
+        "capture_gap")
 
 
 def _lzma_ok(stream: bytes, data: bytes) -> bool:
@@ -89,6 +109,22 @@ def chains(data: bytes, sample: List[Tuple[object, Optional[int]]],
         gap = max(gap, abs(int(cost) - ref))
     return {"chain_errors": errors, "chain_cost_gap": gap,
             "chains_uncosted": uncosted}
+
+
+def ranks(answers: Sequence[tuple]) -> dict:
+    """The ranks whose answer differs from rank 0's."""
+    return {"ranks_disagree": sum(a != answers[0] for a in answers[1:])}
+
+
+def fold(per_rank: Sequence[dict]) -> dict:
+    """The numbers of several ranks as one: counts summed, gaps the
+    widest."""
+    out = {}
+    for checks in per_rank:
+        for k, v in checks.items():
+            out[k] = (max(out.get(k, v), v) if k in GAPS
+                      else out.get(k, 0) + v)
+    return out
 
 
 def verdict(checks: dict) -> bool:

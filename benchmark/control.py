@@ -14,7 +14,10 @@ reading (the lower one) and the smallest of the control and of each
 fault (the upper ones).
 
     python3 benchmark/control.py --workload NAME --seconds S \\
-        [--faults chains_stuck,half_chains] SEED...
+        [--faults chains_stuck,half_chains@2] SEED...
+
+A fault written `name@r` is planted in rank r only, in a cell of several
+chips (benchlib/runner.py runs it one process a card).
 
 Not part of a benchmark run; benchmark/tests/test_bench_control.py and
 test_bench_faults.py make the same comparisons at sizes a CPU test
@@ -41,7 +44,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path[:0] = [BENCH, ROOT]
     import torch
-    from benchlib import check, faults, reference, runner, spec as S
+    from benchlib import check, reference, runner, spec as S
     if not torch.cuda.is_available():
         print("control.py: needs a CUDA card", file=sys.stderr)
         return 2
@@ -50,6 +53,10 @@ def main(argv=None) -> int:
     conf = S.config(spec, wl["config"], ROOT)
     mix = S.traffic(wl["traffic"])
     plants = [f for f in args.faults.split(",") if f]
+
+    def plant(f):
+        name, _, rank = f.partition("@")
+        return [name, [int(rank)] if rank else None]
     lower, upper = {}, {"control": {}, **{f: {} for f in plants}}
 
     def keep(into, checks, pick):
@@ -62,7 +69,7 @@ def main(argv=None) -> int:
                    "seconds": args.seconds, "trace": False,
                    "device_type": "cuda"}
         t0 = time.time()
-        part = runner.drive(payload)
+        part = runner.parts_of(spec, wl, payload)
         checks = part["checks"]
         blocks, outs, _costs = part["judged"]
         f32 = [reference.decode(o, f32=True).cost for o in outs]
@@ -73,10 +80,14 @@ def main(argv=None) -> int:
         keep(lower, checks, max)
         keep(upper["control"], control, min)
         for f in plants:
-            with faults.planted(f):
-                fc = runner.drive(payload)["checks"]
+            try:
+                fc = runner.parts_of(spec, wl, dict(
+                    payload, plants=[plant(f)]))["checks"]
+            except runner.RankFailure as e:
+                fc = {"rank_failure": str(e)}
             line[f] = fc
-            line[f + "_correct"] = check.verdict(fc)
+            line[f + "_correct"] = check.verdict(fc) and "rank_failure" \
+                not in fc
             keep(upper[f], fc, min)
         line["seconds"] = time.time() - t0
         print(json.dumps(line), flush=True)

@@ -12,10 +12,14 @@ one JSON line last on standard output: the end-to-end metrics with
 The numbers compared, each with its limit, are the last lines on
 standard error and the last key of the line.
 
+A cell of several chips runs one process a card (benchlib/runner.py);
+if one of them fails, or they outrun their deadline, all are killed.
+
 Fails, printing no result, without a CUDA card (or with fewer than the
-cell asks for), outside a checkout that holds megalania_tpu_torch, and
-if the JAX stack or the JAX package is loaded once the window has
-closed.  Build and kernel caches stay inside the checkout.
+cell asks for), outside a checkout that holds megalania_tpu_torch, when
+a rank of a cell of several chips fails, and if the JAX stack or the
+JAX package is loaded once the window has closed, in this process or in
+a rank's.  Build and kernel caches stay inside the checkout.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ T_START = time.time()
 import argparse  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import signal  # noqa: E402
 import sys  # noqa: E402
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
@@ -66,8 +71,15 @@ def main(argv=None) -> int:
         os.environ[var] = os.path.join(CACHE, sub)
     os.environ["USE_FLAX"] = "0"
 
-    result, jax = runner.run_cell(spec, wl, conf, mix, args.seed,
-                                  args.seconds, bool(args.trace), T_START)
+    # a run that is ended kills its ranks on the way out
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        result, jax = runner.run_cell(spec, wl, conf, mix, args.seed,
+                                      args.seconds, bool(args.trace),
+                                      T_START)
+    except runner.RankFailure as e:
+        print(f"run.py: {wl['name']}: {e}", file=sys.stderr)
+        return 4
     if jax:
         print(f"run.py: loaded after the window: {', '.join(jax)}",
               file=sys.stderr)

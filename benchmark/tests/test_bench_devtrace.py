@@ -39,3 +39,28 @@ def test_busy_share_uses_the_unprofiled_wall_time():
     # 69 us of device work over 2 iterations, 50 us per iteration
     # unprofiled: 69 percent busy
     assert devtrace.busy_share(DEV, 2, 50e-6) == pytest.approx(0.69)
+
+
+def test_device_annotations_are_no_operations():
+    """cells._reduce keeps the device's operations only: not the device
+    copies of host annotations (a harness span, the process group's
+    "nccl:all_gather" range around its kernel)."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+    from benchlib import cells
+
+    def ev(name, t0, t1, dev, note=False):
+        return NS(name=name, time_range=NS(start=t0, end=t1), thread=1,
+                  device_type=DeviceType.CUDA if dev else DeviceType.CPU,
+                  is_user_annotation=note)
+    prof = NS(events=lambda: [
+        ev(cells.STRETCH, 0, 100, False),
+        ev("nccl:all_gather", 10, 20, True, note=True),
+        ev("ncclDevKernel_AllGather_RING_LL", 11, 19, True),
+        ev(cells.SPAN + "emit", 30, 40, True),
+        ev("repair_kernel", 40, 90, True)])
+    red = cells._reduce(prof, 1e-4, "iterations", 1)
+    assert [d[0] for d in red["dev"]] == ["ncclDevKernel_AllGather_RING_LL",
+                                         "repair_kernel"]
+    assert devtrace.device_seconds(red["dev"], "nccl") == pytest.approx(8e-6)

@@ -128,3 +128,74 @@ def test_added_files_are_found_without_edits(tmp_path, spec):
     names = [m["name"] for m in S.cell_metrics(spec, "elf32k-anneal",
                                                "per_layer")]
     assert names == ["probe_count"]
+
+
+SPEC = S.load(ROOT)
+SEVERAL = [w["name"] for w in SPEC["workloads"] if w["chips"] > 1]
+ANNEAL = [w["name"] for w in SPEC["workloads"]
+          if S.traffic(w["traffic"])["kind"] == "anneal_block"]
+
+
+@pytest.mark.parametrize("name", SEVERAL)
+def test_a_cell_of_several_chips_splits_its_chains(spec, name):
+    """The chains split evenly over the chain ranks, and chain_block is
+    what the CLI resolves for that many chains."""
+    from megalania_tpu_torch import cli
+    wl = S.by_name(spec["workloads"], name)
+    a = S.config(spec, wl["config"], ROOT)["anneal"]
+    assert a["chains"] % wl["chips"] == 0
+    assert a["chain_block"] == cli.chain_block(a["chains"], a["lc"])
+
+
+def test_the_four_card_config_is_the_cli_defaults_at_512_chains(spec):
+    four = S.config(spec, "elf-c512-4gpu", ROOT)
+    one = S.config(spec, "elf-c128", ROOT)
+    assert four["reduced"] == one["reduced"]
+    assert {k: v for k, v in four["anneal"].items()
+            if one["anneal"][k] != v} == {"chains": 512, "chain_block": 512}
+    assert four["mesh"] == {"ranks": 4, "block_groups": 1, "chain_ranks": 4,
+                            "chains_per_card": 128}
+
+
+def test_the_four_card_mix_is_the_one_card_block():
+    """The four-card cell anneals the same bytes from the same start as
+    elf64k-anneal; only its segments follow its longer sweep."""
+    one = S.traffic("libc64k-anneal")
+    four = S.traffic("libc64k-anneal-sweep512")
+    same = ("kind", "data", "sha256", "offset", "length", "warmup_iters",
+            "check_chains")
+    assert {k: four[k] for k in same} == {k: one[k] for k in same}
+
+
+@pytest.mark.parametrize("name", ANNEAL)
+def test_anneal_segments_are_whole_sweeps(spec, name):
+    """Every segment of the window, and the profiled stretch, is a whole
+    number of sweeps, so that every unit of the window does the same
+    work and the profile reads a sweep's mean."""
+    from megalania_tpu_torch.anneal import engine
+    wl = S.by_name(spec["workloads"], name)
+    a = S.config(spec, wl["config"], ROOT)["anneal"]
+    mix = S.traffic(wl["traffic"])
+    tile = engine.choose_tile(mix["length"], a["chain_block"], a["lc"])
+    sweep = -(-mix["length"] // tile) * a["sweep_repeats"]
+    assert mix["segment_iters"] % sweep == 0
+    assert mix["profile_iters"] % sweep == 0
+
+
+def test_the_four_card_cell_reports_the_anneal_metrics_and_the_exchange(
+        spec):
+    def names(cell, kind):
+        return {m["name"].split(".")[0]
+                for m in S.cell_metrics(spec, cell, kind)}
+    assert names("elf64k-anneal-4gpu", "per_layer") == \
+        names("elf64k-anneal", "per_layer") | {"nccl_ms_per_iter",
+                                               "host_ms_per_iter"}
+    assert names("elf64k-anneal-4gpu", "end_to_end") == \
+        names("elf64k-anneal", "end_to_end")
+
+
+def test_collective_metrics_only_in_cells_of_several_chips(spec):
+    for m in spec["per_layer"]:
+        if m["layer"] == "collective":
+            for w in m["workloads"]:
+                assert S.by_name(spec["workloads"], w)["chips"] > 1
