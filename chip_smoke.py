@@ -34,7 +34,11 @@ full settings and phase 16 tools/bench_corpus_torch.py's four files at
 the reference's move budget: the bytes must be the ones the JAX package
 recorded (BENCH_r05.json, BENCH_CORPUS.json), and phase 15 holds the
 repair and proposal kernels at the headline shape (n=2,048, 512
-chains).  Each phase prints one line; the kernels' entry also gives
+chains).  Phase 17 runs the 1 MiB deployment (lc=3, 128 chains, the DP
+seed): the repair kernel reads the bytes from device memory, its first
+walk must cost every chain at the host's exact cost (past 2**31), and
+it must equal its plain version on every chain over the block's last
+8,192 positions.  Each phase prints one line; the kernels' entry also gives
 their launches on every path driven: the candidate kernel's are two per
 block context under init=optimal and one under greedy or mixed.  The last
 lines are the card's name and power limit (nvidia-smi), a JSON object
@@ -699,6 +703,7 @@ def main() -> int:
         full_walk_ms=fullg_ms, packets_per_chain_max=int(fullg_pk.max()),
         ns_per_packet_per_chain=fullg_ms * 1e6 / int(fullg_pk.max()))
 
+
     # the proposal stage of the main path's first iteration
     q8, rec8, site8 = first_proposal(c64, s64, cfg8)
     pargs, pkw = propose_args(c64, s64, q8, cfg8, rec=rec8, **site8)
@@ -1252,6 +1257,43 @@ def main() -> int:
         launches=json.dumps(counts16).replace(" ", ""))
     for name, d in (("repair_cost", rep15), ("propose", prop15)):
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], d)
+
+    # ---- 17. the 1 MiB deployment ------------------------------------
+    # compress --block-size 1048576 --lc 3: 128 chains from the DP seed,
+    # the bytes in device memory; the first full walk costs every chain
+    # at the host's exact cost (past 2**31), and the kernel equals the
+    # plain version on every chain over the block's last 8,192 positions
+    n1m = P.MAX_BLOCK
+    cfg1m = AnnealConfig(chains=128, chain_block=cli.chain_block(128, 3),
+                         lc=3, block_size=n1m)
+    check(not repair_cuda.staging_plan(n1m, 3).bytes_in_smem,
+          "a 1 MiB block reads its bytes from device memory")
+    t = time.time()
+    c1m = engine.make_context(corpus[:n1m], cfg1m, dev)
+    ctx1m_s = time.time() - t
+    staged = dict(repair_cuda.repair_cost_cuda.staged)
+    t = time.time()
+    s1m = engine.init_state(c1m, cfg1m)
+    torch.cuda.synchronize()
+    init1m_s = time.time() - t
+    host1m = optparse_native.cost_train(
+        np.frombuffer(corpus[:n1m], np.uint8), P.to_u32(c1m.init_slab),
+        lc=3)[0]
+    card1m = {fp.to_int(h, lo) for h, lo in zip(
+        s1m.chains.cost_hi.tolist(), s1m.chains.cost_lo.tolist())}
+    check(card1m == {host1m} and host1m > 1 << 31,
+          f"1 MiB first walk: card {sorted(card1m)[:3]} == host {host1m}")
+    d = repair_rows(c1m, cfg1m, s1m, list(range(128)), 8192, rng)
+    check(d == 0, f"repair kernel == plain version at n={n1m}, lc=3: {d}")
+    kernels["repair_cost"]["max_abs_err"] = max(
+        kernels["repair_cost"]["max_abs_err"], d)
+    now = repair_cuda.repair_cost_cuda.staged
+    check((now["device"] - staged["device"], now["shared"]) == (
+        3, staged["shared"]), f"1 MiB launches in device memory: {now}")
+    say("repair_1m", n=n1m, C=128, lc=3, tolerance=0, max_abs_err=d,
+        positions=f"{n1m - 8192}..{n1m}", seed_cost=host1m,
+        context_seconds=round(ctx1m_s, 1), init_state_seconds=round(
+            init1m_s, 2), staged=dict(now))
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],
              "replaces": k["replaces"], "launches": launches[name],

@@ -226,7 +226,14 @@ def init_state(ctx: BlockContext, cfg: AnnealConfig,
                group=None) -> AnnealState:
     """Fresh chains on the initial parse, costed once (a full walk).
     With a chain group: this rank's rows, and the best of global chain 0
-    (held by the group's rank 0) broadcast to every rank."""
+    (held by the group's rank 0) broadcast to every rank.  Runs in the
+    profiler span init_state."""
+    with span("init_state"):
+        return _init_state(ctx, cfg, group)
+
+
+def _init_state(ctx: BlockContext, cfg: AnnealConfig,
+                group=None) -> AnnealState:
     n = ctx.data.shape[0]
     C = cfg.chains
     rank, size = chain_shard(group)

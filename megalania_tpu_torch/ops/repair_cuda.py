@@ -140,11 +140,14 @@ def repair_cost_cuda(slabs, q, u, data_u8, cand_dist, cand_len, log2, *,
             cuda_lib.stream())
     cuda_lib.check(err, "repair")
     repair_cost_cuda.launches += 1
+    repair_cost_cuda.staged["shared" if plan.bytes_in_smem else "device"] += 1
     return (out_slab, misc[:, 0], misc[:, 1], snap_probs, misc[:, 2],
             misc[:, 3:7], misc[:, 7], misc[:, 8], snap_carry)
 
 
 repair_cost_cuda.launches = 0
+# launches by where the kernel read the block's bytes (staging_plan)
+repair_cost_cuda.staged = {"shared": 0, "device": 0}
 
 
 def repair_cost(slabs, q, u, data, data_u8, cand_dist, cand_len, log2,

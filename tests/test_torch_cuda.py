@@ -218,3 +218,55 @@ def test_make_context_on_card_equals_host(dev, init, kernels):
     for f in engine.BlockContext._fields:
         if f != "device":
             assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_repair_kernel_at_1m_lc3_reads_device_memory(dev):
+    """The 1 MiB, lc=3 deployment (128 chains, the DP seed): the repair
+    kernel takes its device-memory branch (the bytes do not fit in shared
+    memory), every chain's first full walk costs the seed at the host's
+    exact cost, past 2**31, and from its own snapshot at n - 8,192 a
+    partial walk with a mutation substituted equals the plain version on
+    every chain, output for output."""
+    from megalania_tpu_torch.match import optparse_native
+    from megalania_tpu_torch.utils import fixedpoint as fp
+    n, chains = P.MAX_BLOCK, 128
+    data = open(os.path.join(ROOT, "tools", "corpus", "libc.so"),
+                "rb").read()[:n]
+    cfg = AnnealConfig(chains=chains, chain_block=128, lc=3, block_size=n)
+    assert not repair_cuda.staging_plan(n, 3).bytes_in_smem
+    ctx = engine.make_context(data, cfg, dev)
+    staged = dict(repair_cuda.repair_cost_cuda.staged)
+    state = engine.init_state(ctx, cfg)
+    want = optparse_native.cost_train(np.frombuffer(data, np.uint8),
+                                      P.to_u32(ctx.init_slab), lc=3)[0]
+    assert want > 1 << 31
+    got = {fp.to_int(h, lo) for h, lo in zip(state.chains.cost_hi.tolist(),
+                                             state.chains.cost_lo.tolist())}
+    assert got == {want}
+
+    rng = np.random.default_rng(15)
+    start = n - 8192
+
+    def ti(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    kw = dict(site_mode=cfg.site_mode, lrep_fallback=cfg.lrep_fallback,
+              lc=3)
+    tabs = (ctx.cand_dist, ctx.cand_len, ctx.log2)
+    snap = repair_cuda.repair_cost_cuda(
+        state.chains.slab, ti(rng.integers(0, n, chains)),
+        ti(rng.integers(0, n, chains)), ctx.data_u8, *tabs, cap_pos=start,
+        **kw)
+    args = (snap[0], ti(rng.integers(start, n, chains)),
+            ti(rng.integers(start, n, chains)))
+    part = dict(start_pos=start, probs_in=snap[3], carry_in=snap[8],
+                mut0=ti(P.pack_np(P.SREP, np.zeros(chains, np.int64),
+                                  np.ones(chains, np.int64)).view(np.int32)),
+                mut1=ti(P.pack_np(P.LREP, rng.integers(0, 4, chains),
+                                  np.full(chains, 2)).view(np.int32)), **kw)
+    got = repair_cuda.repair_cost_cuda(*args, ctx.data_u8, *tabs, **part)
+    plain = repair_cuda.repair_cost_plain(*args, ctx.data, *tabs, **part)
+    _same(got, plain)
+    assert fp.to_int(got[1][0], got[2][0]) > 1 << 31
+    now = repair_cuda.repair_cost_cuda.staged
+    assert (now["device"] - staged["device"], now["shared"]) == (
+        3, staged["shared"])

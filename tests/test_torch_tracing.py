@@ -1,8 +1,8 @@
 """The port's spans (megalania_tpu_torch.utils.profiling.span) on the CPU:
 nothing without a profiler, plain host events under one, and the spans
 that compress_block and compress put at the layer boundaries of the host
-seed and context, the engine iteration, the block queue and the
-emission."""
+seed and context, the chains' first walk, the engine iteration, the
+block queue and the emission."""
 import contextlib
 import os
 
@@ -21,8 +21,8 @@ CFG = AnnealConfig(chains=8, max_candidates=8, max_walk=48, top_k=12,
                    opt_candidates=8, opt_walk=48, init="optimal")
 STAGES = ("iter.draw", "iter.cost", "iter.accept", "iter.best",
           "iter.restart")
-PROGRAM = STAGES + ("context.index", "seed.candidates", "seed.dp", "emit",
-                    "block.wait")
+PROGRAM = STAGES + ("context.index", "seed.candidates", "seed.dp",
+                    "init_state", "emit", "block.wait")
 ITERS, SEGMENT = 4, 2
 
 
@@ -90,10 +90,12 @@ def test_program_spans_do_not_overlap(block_run):
 
 def test_seed_and_context_spans_once_per_block(block_run):
     seq = [n for n, _, _ in block_run]
-    for name in ("context.index", "seed.candidates", "seed.dp", "emit"):
+    for name in ("context.index", "seed.candidates", "seed.dp",
+                 "init_state", "emit"):
         assert seq.count(name) == 1, name
     assert seq.index("context.index") < seq.index("seed.candidates") \
-        < seq.index("seed.dp") < seq.index("iter.draw")
+        < seq.index("seed.dp") < seq.index("init_state") \
+        < seq.index("iter.draw")
     assert seq[-1] == "emit"
 
 
@@ -105,6 +107,31 @@ def test_block_wait_per_segment_and_the_final_readback(block_run):
     assert seq[-2:] == ["block.wait", "emit"]
     waits = [i for i, n in enumerate(seq) if n == "block.wait"]
     assert all(seq[i - 1] == "iter.restart" for i in waits[:-1])
+
+
+def test_init_state_span_holds_the_first_walk(monkeypatch):
+    """init_state's span encloses the chains' fill and their first full
+    walk: the one repair pass before the first iteration."""
+    from megalania_tpu_torch.anneal import engine
+    from megalania_tpu_torch.ops import repair_cuda
+    ctx = engine.make_context(DATA, CFG, "cpu")
+    walks = []
+    plain = repair_cuda.repair_cost_plain
+
+    def watch(*a, **kw):
+        walks.append(torch.autograd._profiler_enabled())
+        return plain(*a, **kw)
+    monkeypatch.setattr(repair_cuda, "repair_cost_plain", watch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("outside.init"):
+            state = engine.init_state(ctx, CFG)
+    assert walks == [True] and state.moves_done == 0
+    evs = {e.name: e for e in prof.events()
+           if e.name in ("outside.init", "init_state")}
+    inner, outer = evs["init_state"], evs["outside.init"]
+    assert not inner.is_user_annotation
+    assert outer.time_range.start <= inner.time_range.start
+    assert inner.time_range.end <= outer.time_range.end
 
 
 def test_dp_only_blocks_carry_the_seed_and_emit_spans():
