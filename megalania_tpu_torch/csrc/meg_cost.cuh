@@ -1,6 +1,6 @@
 // Device code shared by the three kernels (log2_probe.cu, repair.cu,
 // propose.cu): packet unpack/pack, the 26-slot bit plan (with the 8 literal
-// bits and the matched-literal rule), the ctx and rep-stack transitions,
+// bits and the matched-literal rule), the rep-stack transition,
 // the float32 log2 cost and its 2-bit exactness correction (the correction
 // kernel and the proposal kernel; the repair kernel reads the exact table
 // instead).
@@ -77,17 +77,9 @@ __device__ __forceinline__ int adapt(int p, int bit) {
   return bit ? p - (p >> kMoveBits) : p + ((kProbOne - p) >> kMoveBits);
 }
 
-// (Both transitions are written as selects: the repair kernel's walker
-// runs them on every packet, and a branch per type costs it more.)
-__device__ __forceinline__ int ctx_next(int ctx, int type) {
-  const int lit = ctx < 4 ? 0 : (ctx < 10 ? ctx - 3 : ctx - 6);
-  const int lo = type == kMatch ? 7 : (type == kSrep ? 9 : 8);
-  const int hi = type == kMatch ? 10 : 11;
-  return type == kLit ? lit : (ctx < 7 ? lo : hi);
-}
-
 // rep-stack update: MATCH pushes, LREP promotes entry `dist`, LIT/SREP
-// keep the stack
+// keep the stack (selects; the repair kernel's walker runs it for long
+// reps, and the ctx transition as a table, kCtxNext in repair.cu)
 __device__ __forceinline__ void dists_next(int d[4], int type, int dist) {
   const bool m = type == kMatch, l = type == kLrep;
   const int k = min(max(dist, 0), 3);

@@ -26,11 +26,16 @@
 //     ctx, byte, match byte, previous byte, capture/end marks) on through
 //     a ring, published 8 records per mbarrier and released 32 at a time.
 //     The block's bytes sit in shared memory when they fit (staging_plan
-//     in ops/repair_cuda.py picks the branch by size); a re-aimed long rep
-//     loads its candidate row as soon as its type is known and reduces it
-//     with one redux per quantity.  The ctx and rep-stack transitions are
-//     selects, and every lane stores the record, so the lane is tested
-//     only when a chunk of records is published.
+//     in ops/repair_cuda.py picks the branch by size).  It looks one
+//     packet ahead: each packet issues the next packet's word and byte
+//     loads as soon as its own length and rep0 are known, so they arrive
+//     while the record is built.  The common packet (a literal or short
+//     rep) takes one branch: its re-type is selects, a match's push is
+//     moves, and only a long rep branches into the re-aim, which loads its
+//     candidate row and reduces it with one redux per quantity.  One
+//     position test covers both kinds of recording event, and every lane
+//     stores the record, so the lane is tested only when a chunk of
+//     records is published.
 //   * planners (warps 3 and 4, the records of even and odd index): each
 //     record's bit plan.  Lane j computes slot j's row and bit (the order
 //     and semantics of meg::plan_slot): the lane's class row is read once,
@@ -55,13 +60,18 @@
 // marked packet and the coster, reaching that record, writes the
 // probabilities and (hi, lo) as they stand before it.
 //
-// What bounds it now: the walker's dependent chain of shared-memory loads
-// and instructions per packet.  tools/profile_torch_iter.py counts each
-// role's cycles: the walker never waits, the planners and the coster do,
-// so a faster walk needs fewer walker instructions per packet.  chip_smoke
-// phase 2 prints ptxas's registers, stack and spills for each kernel
-// (-Xptxas -v); the shared memory is staging_plan's (108,304 bytes for
-// the main path's 64 KiB block at lc=0).
+// What bounds it now: the coster.  tools/profile_torch_iter.py counts each
+// role's cycles: at the main path's 64 KiB block the walker is busy ~342
+// cycles a packet and waits for ring slots, the coster ~394 and barely
+// waits, so a faster walk needs fewer coster instructions per packet.
+// The walker's loop is issue-bound, one warp on its scheduler: each
+// conditional branch costs it ~18 issue cycles, and a load left pending
+// across a branch or into the next packet makes the compiler wait on it
+// at once (the scoreboards are few).  Hence one branch on the common
+// path, and the lookahead's loads settled at the packet's end.
+// chip_smoke phase 2 prints ptxas's registers, stack and spills for each
+// kernel (-Xptxas -v); the shared memory is staging_plan's (108,304 bytes
+// for the main path's 64 KiB block at lc=0).
 //
 // Every wait has a watchdog: a wait that outlasts ~5 s of clock traps, so
 // a fault shows as a failed launch, never as a hung card.
@@ -162,8 +172,13 @@ __device__ __forceinline__ long long bar_wait(uint64_t* b, uint32_t parity) {
 
 #ifdef MEG_REPAIR_PROFILE
 // per chain: walker cycles, walker waits, coster cycles, coster waits,
-// records (packets + the end markers), first planner cycles and waits
-__device__ unsigned long long g_profile[1024][7];
+// records (packets + the end markers), first planner cycles and waits,
+// then for the walker's lookahead: the long reps whose repair changed the
+// old word's length (there a lookahead from the old word would miss; the
+// walker issues a long rep's lookahead after the re-aim), and the packets
+// whose successor lies past the tile (the lookahead stops at the edge)
+constexpr int kProfileColumns = 9;
+__device__ unsigned long long g_profile[1024][kProfileColumns];
 #define MEG_PROFILE(...) __VA_ARGS__
 #else
 #define MEG_PROFILE(...)
@@ -214,9 +229,17 @@ struct Args {
   meg::Layout L;
 };
 
+// ctx after a packet of each type (models/lzma_state.py ctx_next as a
+// table, which tests/test_torch_repair.py checks; ctx < 12)
+__constant__ unsigned char kCtxNext[4][12] = {
+    {0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 4, 5},               // literal
+    {7, 7, 7, 7, 7, 7, 7, 10, 10, 10, 10, 10},          // match
+    {9, 9, 9, 9, 9, 9, 9, 11, 11, 11, 11, 11},          // short rep
+    {8, 8, 8, 8, 8, 8, 8, 11, 11, 11, 11, 11}};         // long rep
+
 // Walker state (replicated on the walker's lanes).
 struct Carry {
-  int ctx, d[4], live, since, rctx, rd[4], rlive, pord;
+  int ctx, d[4], live, since, rctx, rd[4], rlive;
 };
 
 // The flat index range [g0, g1) of int32 words, split into a 16-byte
@@ -572,25 +595,30 @@ repair_kernel(const __grid_constant__ Args a) {
   for (int k = 0; k < 4; ++k) s.d[k] = ci[1 + k];
   s.live = ci[5]; s.since = ci[8]; s.rctx = ci[9];
   for (int k = 0; k < 4; ++k) s.rd[k] = ci[10 + k];
-  s.rlive = ci[14]; s.pord = ci[15];
+  s.rlive = ci[14];
+  const int pord0 = ci[15];              // the packet ordinal is pord0 + nrec
 
   int nrec = 0;                          // records handed on
-  MEG_PROFILE(long long waited = 0; const long long t0 = clock64();)
+  MEG_PROFILE(long long waited = 0, misses = 0, edges = 0;
+              const long long t0 = clock64();)
   uint32_t pend = 0;                     // flags for the next record
-  // the ring is published kFill records at a time, and once more after
-  // the last record
+  // The ring is published kFill records at a time, and once more after
+  // the last record.  Before a chunk's first slot is written again, the
+  // coster must have released it: the walker waits for that right after
+  // publishing the chunk before it.
   auto emit = [&](int pos, uint32_t word, uint32_t meta, bool last) {
-    const int slot = nrec % kRing;
-    if (nrec >= kRing && slot % kChunk == 0)
-      MEG_PROFILE(waited +=)
-          bar_wait(&bars[kBarFree + slot / kChunk], ((nrec / kRing) - 1) & 1);
+    const int slot = nrec & (kRing - 1);
     // every lane stores the one value: no lane test on the hot path
     ring[slot] = make_int4(pos, int(word), int(meta | (pend << 28)), 0);
-    if (slot % kFill == kFill - 1 || last) {
-      if (lane == 0) bar_arrive(&bars[kBarFull + slot / kFill]);
-    }
     pend = 0;
     ++nrec;
+    if ((nrec & (kFill - 1)) == 0 || last) {
+      if (lane == 0) bar_arrive(&bars[kBarFull + slot / kFill]);
+      if (!last && (nrec & (kChunk - 1)) == 0 && nrec >= kRing)
+        MEG_PROFILE(waited +=)
+            bar_wait(&bars[kBarFree + (nrec & (kRing - 1)) / kChunk],
+                     ((nrec / kRing) - 1) & 1);
+    }
   };
 
   bool captured = false;
@@ -609,7 +637,7 @@ repair_kernel(const __grid_constant__ Args a) {
       o[8] = 0;                          // `since` is pass-relative
       o[9] = s.rctx;
       for (int k = 0; k < 4; ++k) o[10 + k] = s.rd[k];
-      o[14] = s.rlive; o[15] = s.pord;
+      o[14] = s.rlive; o[15] = pord0 + nrec;
     }
     pend |= kCapFlag;                    // the coster adds probs, hi, lo
     captured = true;
@@ -627,97 +655,156 @@ repair_kernel(const __grid_constant__ Args a) {
   };
   int next_ev = next_event();
   const int usite = a.packet_sites ? u : -1;   // packet ordinal to record at
+  // The one test a packet makes for both kinds of event: the first
+  // position at which one can fall.  A packet advances the walk by one
+  // position or more, so the packet site `left` packets ahead lies at
+  // least `left` positions ahead.
+  auto check_from = [&](int pos, int left) {
+    return left >= 0 ? min(next_ev, pos + min(left, n)) : next_ev;
+  };
+  int chk = check_from(s.live, usite - pord0);
 
-  bool stuck = false;                    // a zero-length packet ends the walk
+  // One-packet lookahead.  The next packet starts at pos + this packet's
+  // length and sees the rep0 this packet leaves; both are known before
+  // the packet's record is built (at once for a literal, a short rep or a
+  // match, whose length the repair keeps or sets to 1; after the re-aim
+  // for a long rep).  The loads of the next packet (its word, byte,
+  // previous byte and match byte) are issued there, and settle into
+  // plain values (`nx`) at the end of the packet, while the record, the
+  // live word and the transitions are done: so the next packet finds
+  // them arrived, and no load is still pending when it issues its own
+  // (the card's few scoreboards would otherwise make it wait on them).
+  // The lookahead stays inside the tile: the next tile's words are read
+  // only after its kBarReady.
+  uint32_t lw = 0;                       // the loads in flight
+  int lb = 0, lp = 0, lm = 0;
+  meg::Packet nx{0, 0, 0};               // settled: the next word's fields,
+  uint32_t nx_bytes = 0;                 // byte << 4 | match byte << 12
+  bool nx_eq = false;                    //   | previous byte << 20; mb == byte
+  auto settle = [&]() {
+    nx = meg::unpack(lw);
+    nx_bytes = uint32_t(lb) << 4 | uint32_t(lm) << 12 | uint32_t(lp) << 20;
+    nx_eq = lm == lb;
+  };
+
+  bool stuck = s.live < start;           // contract: live >= start
   for (int k = 0; k < ntiles; ++k) {
-    const int b = start + k * kTile, e = min(b + kTile, n);
-    int* buf = tiles + (k & 1) * kTileWords + off;      // buf[pos - b]
+    const int b = start + k * kTile;
+    // held in a register (a shuffle's result): else the compiler
+    // recomputes it in the loop below, from a constant load of n
+    const int e = __shfl_sync(kFullMask, min(b + kTile, n), 0);
+    int* wb = tiles + (k & 1) * kTileWords + off - b;   // wb[pos]
+    // the loads of the packet at `at`, which sees rep0 d0 (a position
+    // past the tile loads the tile's last one: the walk leaves the tile
+    // there, and they go unused)
+    auto load_next = [&](int at, int d0) {
+      at = min(at, e - 1);
+      lw = uint32_t(wb[at]);
+      lb = byte_at(at);
+      lp = (lc && at > 0) ? byte_at(at - 1) : 0;
+      lm = byte_at(min(max(at - d0 - 1, 0), n - 1));
+    };
     MEG_PROFILE(waited +=) bar_wait(&bars[kBarReady + (k & 1)], (k >> 1) & 1);
-    while (!stuck && s.live < e) {
-      const int pos = s.live;
-      if (pos < b) { stuck = true; break; }   // contract: live >= start
-      if (__builtin_expect(pos >= next_ev || s.pord == usite, 0)) {
-        if (pos >= next_ev) {
-          prologue(pos);
-          next_ev = next_event();
-        }
-        if (s.pord == usite) record();
-      }
-
-      meg::Packet p = meg::unpack(uint32_t(buf[pos - b]));
-      const bool in_repair = pos >= q;
-      const bool lrep = in_repair && p.type == meg::kLrep;
-      const int byte = byte_at(pos);
-      const int mb = byte_at(min(max(pos - s.d[0] - 1, 0), n - 1));
-      if (in_repair) {
-        const bool srep_ok = pos > 0 && s.d[0] + 1 <= pos && mb == byte;
-        const bool count_ok = s.since < 4;
-        if (p.type == meg::kLit || p.type == meg::kSrep) {
-          p.type = (srep_ok && count_ok) ? meg::kSrep
-                   : (srep_ok ? p.type : meg::kLit);
-          p.dist = 0;
-          p.len = 1;
-        } else if (lrep) {
-          // re-aim against the live stack: valid = the stack distance is
-          // in this position's candidate row with enough extension; the
-          // lane's longest entry and its nearest distance on ties.  The
-          // row's loads go first.
-          const int32_t* cdr = a.cand_d + size_t(pos) * M;
-          const int32_t* clr = a.cand_l + size_t(pos) * M;
-          int cd0 = 0, cl0 = -1, cd1 = 0, cl1 = -1;
-          if (lane < M) { cd0 = cdr[lane]; cl0 = clr[lane]; }
-          if (lane + 32 < M) { cd1 = cdr[lane + 32]; cl1 = clr[lane + 32]; }
-          unsigned hit = 0;              // bit j: stack entry j found
-          int ml = -1, dmin = 1 << 30;
-          auto scan = [&](int cd, int cl) {
-            for (int j = 0; j < 4; ++j)
-              hit |= unsigned(cd == s.d[j] && cl >= p.len) << j;
-            if (cl > ml) { ml = cl; dmin = cd; }
-            else if (cl == ml) dmin = min(dmin, cd);
-          };
-          if (lane < M) scan(cd0, cl0);
-          if (lane + 32 < M) scan(cd1, cl1);
-          for (int m = lane + 64; m < M; m += 32) scan(cdr[m], clr[m]);
-          hit = __reduce_or_sync(kFullMask, hit);
-          bool valid[4];
-          for (int j = 0; j < 4; ++j)
-            valid[j] = ((hit >> j) & 1) && s.d[j] + 1 <= pos;
-          const int cur = min(max(p.dist, 0), 3);
-          const bool cur_ok = cur == 0 ? valid[0] : cur == 1 ? valid[1]
-                              : cur == 2 ? valid[2] : valid[3];
-          const bool any = valid[0] || valid[1] || valid[2] || valid[3];
-          const int first = valid[0] ? 0 : (valid[1] ? 1 : (valid[2] ? 2 : 3));
-          int bd = 0, flen = 0;
-          bool use_m = false;
-          if (a.fb_match) {              // longest table match, nearest on ties
-            const int wml = __reduce_max_sync(kFullMask, ml);
-            bd = __reduce_min_sync(kFullMask, ml == wml ? dmin : 1 << 30);
-            flen = min(wml, n - pos);
-            use_m = !(cur_ok || any) && flen >= 2;
+    if (!stuck && s.live < e) {
+      load_next(s.live, s.d[0]);
+      settle();
+      do {
+        const int pos = s.live;
+        if (__builtin_expect(pos >= chk, 0)) {
+          if (pos >= next_ev) {
+            prologue(pos);
+            next_ev = next_event();
           }
-          if (cur_ok || any) {
-            p.dist = cur_ok ? cur : first;
-          } else if (use_m) {
-            p.type = meg::kMatch; p.dist = bd; p.len = flen;
-          } else {
-            p.type = (srep_ok && count_ok) ? meg::kSrep : meg::kLit;
+          const int left = usite - (pord0 + nrec);
+          if (left == 0) record();
+          chk = check_from(pos + 1, left - 1);
+        }
+        meg::Packet p = nx;
+        const uint32_t bytes = nx_bytes;
+        const bool in_repair = pos >= q;
+        const bool srep_ok = pos > 0 && s.d[0] + 1 <= pos && nx_eq;
+        const bool count_ok = s.since < 4;
+        // Each kind of packet issues the next one's loads as soon as it
+        // knows its own length and the rep0 it leaves.
+        if (!(p.type & 1)) {             // a literal or a short rep
+          if (in_repair) {               // re-typed, with length 1
+            p.type = (srep_ok && count_ok) ? meg::kSrep
+                     : (srep_ok ? p.type : meg::kLit);
             p.dist = 0;
             p.len = 1;
           }
+          load_next(pos + p.len, s.d[0]);
+        } else if (p.type == meg::kMatch) {
+          load_next(pos + p.len, p.dist);
+          s.d[3] = s.d[2]; s.d[2] = s.d[1]; s.d[1] = s.d[0]; s.d[0] = p.dist;
+        } else {                         // a long rep
+          if (in_repair) {
+            // re-aim against the live stack: valid = the stack distance
+            // is in this position's candidate row with enough extension;
+            // under the match fallback, the lane's longest entry and its
+            // nearest distance on ties.
+            const int old_len = p.len;
+            const int32_t* cdr = a.cand_d + size_t(pos) * M;
+            const int32_t* clr = a.cand_l + size_t(pos) * M;
+            int cd0 = 0, cl0 = -1, cd1 = 0, cl1 = -1;
+            if (lane < M) { cd0 = cdr[lane]; cl0 = clr[lane]; }
+            if (lane + 32 < M) { cd1 = cdr[lane + 32]; cl1 = clr[lane + 32]; }
+            const bool fb = a.fb_match;
+            unsigned hit = 0;            // bit j: stack entry j found
+            int ml = -1, dmin = 1 << 30;
+            auto scan = [&](int cd, int cl) {
+              for (int j = 0; j < 4; ++j)
+                hit |= unsigned(cd == s.d[j] && cl >= p.len) << j;
+              if (fb) {
+                if (cl > ml) { ml = cl; dmin = cd; }
+                else if (cl == ml) dmin = min(dmin, cd);
+              }
+            };
+            if (lane < M) scan(cd0, cl0);
+            if (lane + 32 < M) scan(cd1, cl1);
+            for (int m = lane + 64; m < M; m += 32) scan(cdr[m], clr[m]);
+            hit = __reduce_or_sync(kFullMask, hit);
+            bool valid[4];
+            for (int j = 0; j < 4; ++j)
+              valid[j] = ((hit >> j) & 1) && s.d[j] + 1 <= pos;
+            const int cur = min(max(p.dist, 0), 3);
+            const bool cur_ok = cur == 0 ? valid[0] : cur == 1 ? valid[1]
+                                : cur == 2 ? valid[2] : valid[3];
+            const bool any = valid[0] || valid[1] || valid[2] || valid[3];
+            const int first = valid[0] ? 0
+                              : (valid[1] ? 1 : (valid[2] ? 2 : 3));
+            int bd = 0, flen = 0;
+            bool use_m = false;
+            if (fb) {                    // longest table match, nearest on ties
+              const int wml = __reduce_max_sync(kFullMask, ml);
+              bd = __reduce_min_sync(kFullMask, ml == wml ? dmin : 1 << 30);
+              flen = min(wml, n - pos);
+              use_m = !(cur_ok || any) && flen >= 2;
+            }
+            if (cur_ok || any) {
+              p.dist = cur_ok ? cur : first;
+            } else if (use_m) {
+              p.type = meg::kMatch; p.dist = bd; p.len = flen;
+            } else {
+              p.type = (srep_ok && count_ok) ? meg::kSrep : meg::kLit;
+              p.dist = 0;
+              p.len = 1;
+            }
+            MEG_PROFILE(misses += p.len != old_len;)
+          }
+          meg::dists_next(s.d, p.type, p.dist);
+          load_next(pos + p.len, s.d[0]);
         }
-      }
-      const int prev = (lc && pos > 0) ? byte_at(pos - 1) : 0;
-      const uint32_t word = meg::pack_live(p);
-      emit(pos, word, uint32_t(s.ctx) | uint32_t(byte) << 4
-                          | uint32_t(mb) << 12 | uint32_t(prev) << 20,
-           false);
-      buf[pos - b] = int32_t(word);      // every lane, one value
-      s.ctx = meg::ctx_next(s.ctx, p.type);
-      meg::dists_next(s.d, p.type, p.dist);
-      s.live = pos + p.len;
-      s.since += in_repair;
-      s.pord += 1;
-      stuck = p.len == 0;
+        MEG_PROFILE(edges += pos + p.len >= e && pos + p.len < n;)
+        const uint32_t word = meg::pack_live(p);
+        emit(pos, word, uint32_t(s.ctx) | bytes, false);
+        wb[pos] = int32_t(word);           // every lane, one value
+        s.ctx = kCtxNext[p.type][s.ctx];
+        s.live = pos + p.len;
+        s.since += in_repair;
+        stuck = p.len == 0;                // a zero-length packet ends the walk
+        settle();
+      } while (!stuck && s.live < e);
     }
     __syncwarp();
     if (lane == 0) {
@@ -727,26 +814,29 @@ repair_kernel(const __grid_constant__ Args a) {
   }
   prologue(0x7fffffff);
   if (!captured) capture();
+  const int npackets = nrec;
   for (int k = 0; k < kPlanners; ++k) {   // an end for each planner
     pend |= kEndFlag;
     emit(0, 0, 0, k == kPlanners - 1);
   }
   if (lane == 0) {
     MEG_PROFILE(g_profile[c][0] = clock64() - t0; g_profile[c][1] = waited;
-                g_profile[c][4] = nrec;)
+                g_profile[c][4] = nrec;
+                g_profile[c][7] = misses; g_profile[c][8] = edges;)
     int32_t* o = a.misc + size_t(c) * 9;
     o[2] = s.rctx;
     for (int k = 0; k < 4; ++k) o[3 + k] = s.rd[k];
-    o[7] = s.rlive; o[8] = s.pord;
+    o[7] = s.rlive; o[8] = pord0 + npackets;
   }
 }
 
 }  // namespace
 
 #ifdef MEG_REPAIR_PROFILE
-extern "C" int meg_repair_profile(unsigned long long* out) {   // [1024][7]
+extern "C" int meg_repair_profile(unsigned long long* out) {   // [1024][9]
   return int(cudaMemcpyFromSymbol(out, g_profile, sizeof(g_profile)));
 }
+extern "C" int meg_repair_profile_columns() { return kProfileColumns; }
 #endif
 
 extern "C" int meg_repair(

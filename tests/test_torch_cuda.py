@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from candidate_cases import CASES, block, index, numpy_table
+from repair_cases import C, DATA, EDGE_DATA, kernel_inputs
 from megalania_tpu_torch.anneal import engine
 from megalania_tpu_torch.anneal.config import AnnealConfig
 from megalania_tpu_torch.match import candidates as C_
@@ -24,9 +25,6 @@ from megalania_tpu_torch.ops import tables as T
 pytestmark = pytest.mark.cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DATA = open(os.path.join(ROOT, "tools", "corpus", "libc.so"),
-            "rb").read()[4096:4096 + 1024]
-C = 8
 
 
 @pytest.fixture(scope="module")
@@ -39,17 +37,6 @@ def dev():
 @pytest.fixture(scope="module")
 def ctx(dev):
     return engine.make_context(DATA, AnnealConfig(chains=C), dev)
-
-
-def _mutated(ctx, rng):
-    n = ctx.data.shape[0]
-    slabs = np.broadcast_to(P.to_u32(ctx.init_slab), (C, n)).copy()
-    for c in range(C):
-        for _ in range(6):
-            slabs[c, int(rng.integers(1, n))] = P.pack_np(
-                P.LREP, int(rng.integers(0, 4)), 2)
-            slabs[c, int(rng.integers(1, n))] = P.pack_np(P.SREP, 0, 1)
-    return P.from_u32(slabs, ctx.device)
 
 
 def _same(got, want):
@@ -96,22 +83,28 @@ def test_log2_correction_raises_beyond_one(dev):
 
 
 @pytest.mark.parametrize("kw", [
-    {}, {"site_mode": "packet"}, {"lrep_fallback": "litsrep"},
-    {"cap_pos": 512}, {"mut": True}, {"lc": 3}],
-    ids=["full", "packet", "litsrep", "capture", "substitution", "lc3"])
+    {}, {"site_mode": "packet"}, {"lrep_fallback": "match"},
+    {"cap_pos": 512}, {"mut": True}, {"lc": 3},
+    {"lc": 3, "lrep_fallback": "match"},
+    {"edges": True, "lrep_fallback": "match"}],
+    ids=["full", "packet", "match", "capture", "substitution", "lc3",
+         "lc3-match", "tile_edges"])
 def test_repair_kernel_matches_plain(dev, ctx, kw):
+    """The kernel equals the plain version on every output.  The inputs
+    (tests/repair_cases.py) make the repair change packet lengths;
+    `tile_edges` plants long reps where a tile ends, so a changed length
+    falls where the walker's lookahead stops."""
     rng = np.random.default_rng(5)
-    n = ctx.data.shape[0]
     kw = dict(kw)
     lc = kw.get("lc", 0)
-    c = ctx if not lc else engine.make_context(
-        DATA, AnnealConfig(chains=C, lc=lc), dev)
-    slabs = _mutated(c, rng)
-    q = torch.as_tensor(rng.integers(0, n // 2, C), dtype=torch.int32,
-                        device=dev)
-    hi_u = 64 if kw.get("site_mode") == "packet" else n
-    u = torch.as_tensor(rng.integers(0, hi_u, C), dtype=torch.int32,
-                        device=dev)
+    edges = kw.pop("edges", False)
+    c = ctx if not (lc or edges) else engine.make_context(
+        EDGE_DATA if edges else DATA, AnnealConfig(chains=C, lc=lc), dev)
+    n = c.data.shape[0]
+    slabs, q, u = kernel_inputs(c, rng, edges=edges,
+                                packet_sites=kw.get("site_mode") == "packet")
+    slabs = P.from_u32(slabs, dev)
+    q, u = (torch.as_tensor(v, device=dev) for v in (q, u))
     if kw.pop("mut", False):
         q[0] = n - 1
         kw["mut0"] = slabs[:, 3].contiguous()

@@ -2,6 +2,9 @@
 behind repair_cuda.repair_cost_plain) equals megalania_tpu's golden scan
 and its Pallas kernel in interpret mode, integer for integer, on the
 inputs tests/test_pallas_repair.py uses (n = 192, C = 8)."""
+import os
+import re
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -12,7 +15,10 @@ from megalania_tpu.anneal.config import AnnealConfig
 from megalania_tpu.models import packets as JP
 from megalania_tpu.ops import pallas_repair2, repair_scan as JR
 from megalania_tpu.ops import problayout as JPL
+import repair_cases as RC
 from megalania_tpu_torch.anneal import engine as TE
+from megalania_tpu_torch.anneal.config import AnnealConfig as TConfig
+from megalania_tpu_torch.models import lzma_state as TS
 from megalania_tpu_torch.models import packets as TP
 from megalania_tpu_torch.ops import bitplan as TB
 from megalania_tpu_torch.ops import log2_cuda, repair_cuda, tables as TT
@@ -221,6 +227,48 @@ def test_dispatch_on_cpu_is_the_plain_version(ctxs, rng):
     want = _port(t, slabs, q, u, lrep_fallback="match")
     for name, g, w in zip(NAMES, _np(got), _np(want)):
         np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("edges", [False, True], ids=["mutated", "tile_edges"])
+@pytest.mark.parametrize("fallback", ["litsrep", "match"])
+def test_repair_changes_packet_lengths(edges, fallback):
+    """On the inputs the repair kernel is held to its plain version on
+    the card (tests/repair_cases.py, test_torch_cuda.py's
+    test_repair_kernel_matches_plain), the repair gives some live packet
+    another length than the old word at its position, so the card test
+    sees the kernel's walker place the next packet by the repaired
+    length.  With `edges`, such a packet is one of the long reps planted
+    just before a tile's edge, where the walker's lookahead stops."""
+    ctx = TE.make_context(RC.EDGE_DATA if edges else RC.DATA,
+                          TConfig(chains=RC.C), "cpu")
+    slabs, q, u = RC.kernel_inputs(ctx, np.random.default_rng(5),
+                                   edges=edges)
+    out = repair_cuda.repair_cost_plain(
+        TP.from_u32(slabs), _i32(q), _i32(u), ctx.data, ctx.cand_dist,
+        ctx.cand_len, ctx.log2, lrep_fallback=fallback)[0]
+    new = TP.to_u32(out)
+    live = (new >> TP.LIVE_SHIFT) == 1
+    changed = live & (((new >> 20) & 0x1FF) != ((slabs >> 20) & 0x1FF))
+    if edges:       # the planted long reps whose old length crosses the edge
+        changed = np.concatenate([changed[:, e - 2:e] for e in range(
+            RC.TILE, slabs.shape[1], RC.TILE)], axis=1)
+    assert changed.any()
+
+
+def test_walker_ctx_table_is_the_transition():
+    """The repair kernel's walker takes the ctx after each packet from a
+    table (kCtxNext in csrc/repair.cu): every entry equals the plain
+    version's ctx_next (models/lzma_state.py) for its type and ctx."""
+    src = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "megalania_tpu_torch", "csrc",
+        "repair.cu")).read()
+    body = re.search(r"kCtxNext\[4\]\[12\] = \{(.*?)\};", src, re.S).group(1)
+    rows = [[int(v) for v in re.findall(r"\d+", r)]
+            for r in re.findall(r"\{([^{}]*)\}", body)]
+    ctx = torch.arange(12, dtype=torch.int32)
+    want = [TS.ctx_next(ctx, torch.full_like(ctx, t)).tolist()
+            for t in (TP.LIT, TP.MATCH, TP.SREP, TP.LREP)]
+    assert rows == want
 
 
 @pytest.mark.parametrize("lc", range(5))

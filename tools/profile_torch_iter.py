@@ -35,13 +35,19 @@ timing and the trace go through the library's own hooks
 window, trace for the profiled one, whose chrome trace is written to
 DIR/trace.json.
 
-Last, where the repair kernel's full walk of the same block spends its
-cycles, role by role: the kernel library is rebuilt with
-MEG_REPAIR_PROFILE (csrc/repair.cu: each role counts its cycles and the
-cycles it waits for the other, and the waits spin so that no wait hides
-inside a suspended try_wait), and the walk is timed again.  The role
-that waits least bounds the walk.  That build is for this count only: its
-spinning waits and counters make it no yardstick of speed.
+Last, the repair kernel's full walk of the same block: its device time
+(CUDA events), then where it spends its cycles, role by role: the kernel
+library is rebuilt with MEG_REPAIR_PROFILE (csrc/repair.cu: each role
+counts its cycles and the cycles it waits for the other, and the waits
+spin so that no wait hides inside a suspended try_wait), and the walk is
+timed again.  The role that waits least bounds the walk.  The same build
+counts for the walker's one-packet lookahead, as shares of the chain's
+records, the long reps whose repair changed the old word's length
+(walker_lookahead_miss_share: a lookahead from the old word would miss
+there, so the walker issues a long rep's after its re-aim) and the
+packets whose successor lies past the tile (walker_lookahead_edge_share:
+the lookahead stops at the edge).  That build is for these counts only:
+its spinning waits and counters make it no yardstick of speed.
 """
 from __future__ import annotations
 
@@ -152,20 +158,14 @@ def context_host_ms(ctx, cfg, reps: int = 50) -> float:
 
 
 def repair_roles(ctx, slab, lc: int, reps: int = 5):
-    """The repair kernel's full walk of `slab` from a profiling build:
-    per packet per chain, each role's busy and waiting cycles (walker,
-    coster, and the first of the two planners, which plans every other
-    packet)."""
+    """The repair kernel's full walk of `slab`: its device time, then,
+    from a profiling build, per packet per chain each role's busy and
+    waiting cycles (walker, coster, and the first of the two planners,
+    which plans every other packet) and the walker's lookahead counts."""
     import numpy as np
     import torch
     from megalania_tpu_torch.ops import cuda_lib, repair_cuda
     from megalania_tpu_torch.runtime import build
-    so = ctypes.CDLL(build.cuda_lib_path(("MEG_REPAIR_PROFILE",)))
-    for name, argtypes in cuda_lib._SIGNATURES.items():
-        getattr(so, name).argtypes = argtypes
-        getattr(so, name).restype = ctypes.c_int
-    so.meg_repair_profile.argtypes = [ctypes.c_void_p]
-    cuda_lib.lib = lambda: so          # the wrappers launch this build
     C, n = slab.shape
     rng = np.random.default_rng(1673551)
     q, u = (torch.as_tensor(rng.integers(0, n, C), dtype=torch.int32,
@@ -175,20 +175,34 @@ def repair_roles(ctx, slab, lc: int, reps: int = 5):
         return repair_cuda.repair_cost_cuda(
             slab, q, u, ctx.data_u8, ctx.cand_dist, ctx.cand_len, ctx.log2,
             lrep_fallback="match", lc=lc)
-    walk()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    for _ in range(reps):
+
+    def walk_ms():
         walk()
-    t1.record()
-    torch.cuda.synchronize()
-    ms = t0.elapsed_time(t1) / reps
-    prof = np.zeros((1024, 7), np.uint64)
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(reps):
+            walk()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    print(f"repair_full_walk_ms={walk_ms():.3f} C={C} n={n}")
+    so = ctypes.CDLL(build.cuda_lib_path(("MEG_REPAIR_PROFILE",)))
+    for name, argtypes in cuda_lib._SIGNATURES.items():
+        getattr(so, name).argtypes = argtypes
+        getattr(so, name).restype = ctypes.c_int
+    so.meg_repair_profile.argtypes = [ctypes.c_void_p]
+    cuda_lib.lib = lambda: so          # the wrappers launch this build
+    ms = walk_ms()
+    # a kernel without the lookahead counters has 7 columns
+    cols = (so.meg_repair_profile_columns()
+            if hasattr(so, "meg_repair_profile_columns") else 7)
+    prof = np.zeros((1024, cols), np.uint64)
     if so.meg_repair_profile(prof.ctypes.data) != 0:
         raise RuntimeError("reading the repair profile counters failed")
     w_tot, w_wait, c_tot, c_wait, recs, p_tot, p_wait = \
-        prof[:C].astype(np.float64).T
+        prof[:C, :7].astype(np.float64).T
     print(f"repair_full_walk_profiling_build_ms={ms:.3f} C={C} n={n} "
           f"records_per_chain={recs.mean():.1f} "
           f"clock_ghz~{w_tot.mean() / ms / 1e6:.3f}")
@@ -201,6 +215,12 @@ def repair_roles(ctx, slab, lc: int, reps: int = 5):
           "planner_busy_cycles_per_packet="
           f"{((p_tot - p_wait) / recs).mean():.1f} "
           f"planner_wait_cycles_per_packet={(p_wait / recs).mean():.1f}")
+    if cols >= 9:
+        misses, edges = prof[:C, 7:9].astype(np.float64).T
+        print("walker_lookahead_miss_share="
+              f"{(misses / recs).mean():.6f} "
+              "walker_lookahead_edge_share="
+              f"{(edges / recs).mean():.6f}")
 
 
 if __name__ == "__main__":
