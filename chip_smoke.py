@@ -1,49 +1,57 @@
 #!/usr/bin/env python3
-"""Smoke test of megalania_tpu_torch on one CUDA card (an H100, sm_90a).
+"""Smoke run of megalania_tpu_torch on one CUDA card (an H100, sm_90a).
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout (and prints ptxas's
-registers per kernel), holds each against its plain PyTorch version on
-the card, runs the engine on cuda and on cpu and compares the states,
-then compresses a real 64 KiB block through the port's CLI with 128
-chains and checks the output.  Phase 8 holds the proposal kernel against
-its plain version at the main path's first state and times the kernels
-at the main path's shapes: each kernel's own device time (the
-profiler's kernel durations) and its wrapper's call time, beside their
-bounds (bytes over the HBM rate, or operations over their peak, from
-this run's inputs); beside the log2 correction kernel it prints the
-card's launch floor (the device time of a one-element fill) and the host
-time of one log2_correction call; it also times the repair kernel's full
-walk per packet, and holds the repair kernel with the block's bytes in device
-memory (a 256 KiB block) against its plain version; it holds the
-candidate-table kernel to the numpy builder (torch.equal) at the main
-path's block for both of a context's tables, the annealer's and the
-seed's, and times it against numpy's host time.  Later phases drive
-the other paths on the card: an interrupted and resumed 64 KiB block
-against the uninterrupted one, the whole-parse cost (scan_cost) against
-the native cost, the chain-sharded anneal over a one-rank NCCL group
-against the single-process one, the 1 MiB corpus as 16 blocks of 64 KiB
-at 512 chains in one container (tools/run_1mib_corpus_torch.py), a
-64 KiB block at lc=3 that the anneal must improve
-(tools/run_64k_block_torch.py), and a small container on cuda against
-the same on cpu; phases 12 and 13 also hold the repair and proposal
-kernels against their plain versions at their own shapes (512 chains;
-lc=3 at 64 KiB).  Phase 15 runs bench_torch.py's three rows at their
-full settings and phase 16 tools/bench_corpus_torch.py's four files at
-the reference's move budget: the bytes must be the ones the JAX package
-recorded (BENCH_r05.json, BENCH_CORPUS.json), and phase 15 holds the
-repair and proposal kernels at the headline shape (n=2,048, 512
-chains).  Phase 17 runs the 1 MiB deployment (lc=3, 128 chains, the DP
-seed): the repair kernel reads the bytes from device memory, its first
-walk must cost every chain at the host's exact cost (past 2**31), and
-it must equal its plain version on every chain over the block's last
-8,192 positions.  Each phase prints one line; the kernels' entry also gives
-their launches on every path driven: the candidate kernel's are two per
-block context under init=optimal and one under greedy or mixed.  The last
-lines are the card's name and power limit (nvidia-smi), a JSON object
-with one entry per kernel, and {"ok": true, "device": {...}}.  Any
-failed check raises: the script then
+Drives the port's paths on the card, times its kernels, and holds each
+kernel against its plain version on the inputs it times (torch.equal,
+tolerance 0).  The full on-card parity suite, at small shapes and at
+the deployments' shapes, is tests/test_torch_cuda.py, which runs on the
+card with
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+The phases, one line each:
+ 1. device: torch, CUDA, the card's name and power limit;
+ 2. build: the kernels from this checkout, ptxas's registers per kernel;
+ 3. main_path: a real 64 KiB block through the CLI with 128 chains,
+    verified, decoded, and no larger than its DP-only stream; its size
+    against its prediction; a 2 KiB block;
+ 4. the kernels at the main path's shapes: each kernel against its plain
+    version on the inputs it is timed on (max_abs_err), its own device
+    time (the profiler's kernel durations) and its wrapper's call time,
+    beside their bounds (bytes over the HBM rate, or operations over
+    their peak, from this run's inputs) and the plain versions' times;
+    the card's launch floor (the device time of a one-element fill) and
+    the host time of one log2_correction call; the repair kernel's full
+    walk per packet;
+ 5. device_memory: the 1 MiB deployment (lc=3, 128 chains, the DP
+    seed) through the engine's entry points, every repair launch reading
+    the bytes from device memory: the first walk at the host's exact
+    cost (past 2**31), the kernel against its plain version on every
+    chain over the block's last 8,192 positions, two iterations;
+ 6. cuda_vs_cpu: the engine's state after 12 iterations at 128 chains,
+    scan_cost on the card against the native cost, and a small
+    container, each on the card against the CPU;
+ 7. checkpoint: an interrupted and resumed 64 KiB block against the
+    uninterrupted one;
+ 8. distributed: run_iters over a one-rank NCCL group against the run
+    without a group;
+ 9. corpus_1mib: 16 blocks of 64 KiB at 512 chains in one container
+    (tools/run_1mib_corpus_torch.py);
+10. block_64k_lc3: a 64 KiB block at lc=3 that the anneal must improve
+    (tools/run_64k_block_torch.py);
+11. bench: bench_torch.py's three rows at their full settings, at the
+    bests the JAX package recorded (BENCH_r05.json), and the headline's
+    device and wall time an iteration;
+12. bench_corpus: tools/bench_corpus_torch.py's four files at the
+    reference's move budget, at the recorded bytes (BENCH_CORPUS.json).
+Each drive also counts its kernels' launches, and the repair kernel's
+by where it read the block's bytes (shared or device memory): the
+candidate kernel's are two per block context under init=optimal and one
+under greedy or mixed.  The last lines are the card's name and power
+limit (nvidia-smi), a JSON object with one entry per kernel, and
+{"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result.  Without a CUDA device, or outside
 a checkout of the repository, it fails.
 """
@@ -102,13 +110,15 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps: int = 100, windows: int = 5,
-              kernel: str = "") -> float:
+def device_ms(fn, reps: int = 100, windows: int = 5, kernel: str = "",
+              counter=None) -> float:
     """Device milliseconds per call of fn(): the median over `windows`
     torch.profiler windows of `reps` calls each, of the summed device
     durations the profiler records (kernels and copies; with `kernel`,
     only the kernels whose name holds it).  Unlike cuda_ms, the host's
-    time between launches is not counted."""
+    time between launches is not counted.  Every window must hold device
+    time and, with `counter` (the kernel's wrapper, which counts its
+    launches), one `kernel` event a launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -116,15 +126,34 @@ def device_ms(fn, reps: int = 100, windows: int = 5,
     torch.cuda.synchronize()
     per_call = []
     for _ in range(windows):
+        made = counter.launches if counter else 0
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and kernel in e.key)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        us = sum(e.self_device_time_total for e in rows)
+        check(us > 0, f"the profiler recorded device time ({kernel})")
+        if counter is not None:
+            made, seen = counter.launches - made, sum(e.count for e in rows)
+            check(seen == made, f"the profiler recorded every {kernel} "
+                  f"launch ({seen} of {made})")
         per_call.append(us / 1e3 / reps)
-    check(min(per_call) > 0, "the profiler recorded device time")
     return statistics.median(per_call)
+
+
+def max_abs_diff(got, want) -> int:
+    """The largest |difference| over two tuples of integer outputs (0:
+    equal), after checking their shapes match."""
+    import torch
+    worst = 0
+    for g, w in zip(got, want):
+        g, w = (t.detach().to("cpu", torch.int64) for t in (g, w))
+        check(g.shape == w.shape, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if g.numel():
+            worst = max(worst, int((g - w).abs().max()))
+    return worst
 
 
 def same_state(a: dict, b: dict, what: str):
@@ -191,102 +220,6 @@ def propose_work(C: int, Pn: int, NC: int, M: int, PR: int):
     return nbytes, OPS_PER_BIT * 26 * rows * NC + OPS_PER_HASH * hashes
 
 
-def propose_args(ctx, state, q, cfg, rec=None, **site):
-    """(args, keywords) of the proposal stage for the chains of an engine
-    state at sites q (rec: their (rec_ctx, rec_dists), else the
-    state's)."""
-    ch = state.chains
-    rec_ctx, rec_dists = rec if rec is not None else (ch.rec_ctx,
-                                                      ch.rec_dists)
-    return ((ch.key, state.skey, ch.slab, q, rec_ctx, rec_dists,
-             ch.rank_probs, ch.live_count, ctx),
-            dict(proposals=cfg.proposals, top_k=cfg.top_k,
-                 sublens=cfg.sublens, lc=cfg.lc, **site))
-
-
-def propose_both(*a, **kw):
-    """The proposal kernel's and its plain version's outputs on the same
-    CUDA tensors (propose_args' arguments)."""
-    import torch
-    from megalania_tpu_torch.ops import propose_cuda
-    args, pkw = propose_args(*a, **kw)
-    got = propose_cuda.propose_cuda(*args, **pkw)
-    want = propose_cuda.propose_plain(*args, **pkw)
-    torch.cuda.synchronize()
-    return got, want
-
-
-def max_abs_diff(got, want):
-    """Largest |difference| over matching output tuples (exact: 0)."""
-    import torch
-    worst = 0
-    for g, w in zip(got, want):
-        as_ = torch.float64 if g.is_floating_point() else torch.int64
-        g = g.detach().to("cpu", as_)
-        w = w.detach().to("cpu", as_)
-        check(g.shape == w.shape, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
-        if g.numel():
-            worst = max(worst, (g - w).abs().max().item())
-    return worst
-
-
-def first_proposal(ctx, state, cfg):
-    """(sites, (rec_ctx, rec_dists), site keywords) of the proposal stage
-    of the main path's first iteration from a fresh state: a fresh sweep
-    (sites and stack from the zero carry where a chain's recorded site
-    ran off the end), stratum 0."""
-    import torch
-    from megalania_tpu_torch.anneal import engine
-    ch = state.chains
-    n = ctx.data.shape[0]
-    fresh = ch.rec_live >= n
-    rec = (torch.where(fresh, 0, ch.rec_ctx),
-           torch.where(fresh[:, None], 0, ch.rec_dists))
-    return (torch.where(fresh, 0, ch.rec_live), rec,
-            dict(u_lo=0, span=engine.choose_tile(n, cfg.chain_block, cfg.lc)))
-
-
-def repair_rows(ctx, cfg, state, rows, window: int, rng) -> int:
-    """The repair kernel against its plain version at a main-path shape:
-    the kernel at full width (every chain of `state`, so every wave of
-    blocks) from its own snapshot `window` positions before the block's
-    end, with a mutation substituted in-pass at random sites in the
-    window; the plain version (one Python step per position) on `rows`
-    of the same inputs.  Returns the largest |difference| over every
-    output of those rows (exact: 0)."""
-    import numpy as np
-    import torch
-    from megalania_tpu_torch.models import packets as P
-    from megalania_tpu_torch.ops import repair_cuda
-    slab = state.chains.slab
-    C, n = slab.shape
-    dev = slab.device
-
-    def ti(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
-    kw = dict(site_mode=cfg.site_mode, lrep_fallback=cfg.lrep_fallback,
-              lc=cfg.lc)
-    tabs = (ctx.cand_dist, ctx.cand_len, ctx.log2)
-    start = n - window
-    snap = repair_cuda.repair_cost_cuda(
-        slab, ti(rng.integers(0, n, C)), ti(rng.integers(0, n, C)),
-        ctx.data_u8, *tabs, cap_pos=start, **kw)
-    q, u = ti(rng.integers(start, n, C)), ti(rng.integers(start, n, C))
-    mut0 = ti(P.pack_np(P.SREP, np.zeros(C, np.int64), np.ones(C, np.int64))
-              .view(np.int32))
-    mut1 = ti(P.pack_np(P.LREP, rng.integers(0, 4, C), np.full(C, 2))
-              .view(np.int32))
-    got = repair_cuda.repair_cost_cuda(
-        snap[0], q, u, ctx.data_u8, *tabs, mut0=mut0, mut1=mut1,
-        start_pos=start, probs_in=snap[3], carry_in=snap[8], **kw)
-    r = torch.as_tensor(rows, device=dev)
-    want = repair_cuda.repair_cost_plain(
-        snap[0][r], q[r], u[r], ctx.data, *tabs, mut0=mut0[r], mut1=mut1[r],
-        start_pos=start, probs_in=snap[3][r], carry_in=snap[8][r], **kw)
-    torch.cuda.synchronize()
-    return max_abs_diff(tuple(g[r] for g in got), want)
-
-
 def main() -> int:
     import numpy as np
     import torch
@@ -294,19 +227,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
 
     from megalania_tpu_torch import cli, compressor
     from megalania_tpu_torch.anneal import engine
     from megalania_tpu_torch.anneal.config import AnnealConfig
     from megalania_tpu_torch.match import candidates as C_
-    from megalania_tpu_torch.match import optparse_native
+    from megalania_tpu_torch.match import optparse, optparse_native
     from megalania_tpu_torch.match.suffix import build_lce
     from megalania_tpu_torch.models import packets as P
     from megalania_tpu_torch.ops import (candidates_cuda, log2_cuda,
                                          problayout, propose_cuda,
-                                         repair_cuda, tables as T)
+                                         repair_cuda, scan_cost)
+    from megalania_tpu_torch.ops import tables as T
+    from megalania_tpu_torch.parallel import blocks as blocks_mod
     from megalania_tpu_torch.runtime import build
     from megalania_tpu_torch.utils import fixedpoint as fp
+    from repair_cases import first_proposal, repair_rows
 
     os.makedirs(WORK, exist_ok=True)
     dev = torch.device("cuda", 0)
@@ -364,164 +301,13 @@ def main() -> int:
         repair_smem_bytes_64k=plan64.smem_bytes,
         repair_bytes_in_smem_64k=plan64.bytes_in_smem)
 
-    # ---- 3. log2 correction kernel vs its plain version ---------------
-    table = torch.as_tensor(T.LOG2_TABLE_I32, device=dev)
-    corr, raw, status = log2_cuda.log2_correction_cuda(table)
-    want = log2_cuda.correction_plain(raw, table)
-    words_err = int((corr.long() - want.long()).abs().max())
-    check(words_err == 0, "correction kernel words == plain version's "
-          f"on the kernel's raw ({words_err})")
-    plain = log2_cuda.log2_probe_plain(dev)
-    exact = log2_cuda.apply_correction(raw.cpu().numpy(), corr.cpu().numpy())
-    check(np.array_equal(exact[1:], T.LOG2_TABLE_NP[1:]),
-          "raw + correction == LOG2_TABLE for p in 1..2047")
-    diff = plain.long() - raw.long()
-    check(status.tolist() == [int(diff.min()), int(diff.max())],
-          f"status {status.tolist()} == range of table - raw")
-    same = torch.nonzero(table[1:] == raw[1:]).flatten()
-    bad = table.clone()
-    bad[1 + int(same[700])] += 2
-    for fn, args in ((log2_cuda.log2_correction_cuda, (bad,)),
-                     (log2_cuda.correction_plain, (raw, bad))):
-        try:
-            fn(*args)
-            check(False, f"{fn.__name__} raises on a deviation of 2")
-        except RuntimeError as e:
-            check("deviates by >1" in str(e), f"{fn.__name__}: {e}")
-    kernels["log2_probe"]["max_abs_err"] = max(words_err, int(
-        np.abs(exact[1:] - plain.cpu().numpy()[1:]).max()))
-    say("log2", tolerance=0, words_vs_plain_max=words_err,
-        raw_vs_table_max=int(diff.abs().max()),
-        corrected_vs_table_max=kernels["log2_probe"]["max_abs_err"],
-        corrections=int((diff != 0).sum()), status=status.tolist(),
-        raises_beyond_one=True)
-
-    # ---- 4. repair kernel vs its plain version, both on the card -----
     n, C = 2048, 128
     block = corpus[16384:16384 + n]
-    cfg = AnnealConfig(chains=C)
-    ctx = engine.make_context(block, cfg, dev)
-    tile = engine.choose_tile(n, 128, 0)
-    check(tile == 256, f"choose_tile(2048, 128, 0) == 256, got {tile}")
-    init = P.to_u32(ctx.init_slab)
-    slabs = np.broadcast_to(init, (C, n)).copy()
-    cd, cl = ctx.cand_dist.cpu().numpy(), ctx.cand_len.cpu().numpy()
-    for c in range(C):
-        for _ in range(6):
-            i = int(rng.integers(2, n - 4))
-            m = int(rng.integers(0, cd.shape[1]))
-            if cl[i, m] >= 2:
-                slabs[c, i] = P.pack_np(P.MATCH, cd[i, m],
-                                        min(int(cl[i, m]), n - i))
-            slabs[c, int(rng.integers(1, n))] = P.pack_np(
-                P.LREP, int(rng.integers(0, 4)), 2)
-            slabs[c, int(rng.integers(1, n))] = P.pack_np(P.SREP, 0, 1)
-    slabs_t = P.from_u32(slabs, dev)
 
     def ti(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=dev)
-    q = ti(rng.integers(0, n // 2, C))
-    u = ti(rng.integers(0, n, C))
 
-    def both(slab_in, q_, u_, lc=0, **kw):
-        c_ = ctx if lc == 0 else lc_ctx
-        got = repair_cuda.repair_cost_cuda(
-            slab_in, q_, u_, c_.data_u8, c_.cand_dist, c_.cand_len, c_.log2,
-            lc=lc, lrep_fallback="match", **kw)
-        want = repair_cuda.repair_cost_plain(
-            slab_in, q_, u_, c_.data, c_.cand_dist, c_.cand_len, c_.log2,
-            lc=lc, lrep_fallback="match", **kw)
-        torch.cuda.synchronize()
-        return got, want
-
-    lc_ctx = engine.make_context(block, AnnealConfig(chains=C, lc=3), dev)
-    worst = 0
-    q_last = q.clone()
-    q_last[0] = n - 1
-    mut0 = ti(P.pack_np(P.SREP, np.zeros(C, np.int64), np.ones(C, np.int64))
-              .view(np.int32))
-    mut1 = ti(P.pack_np(P.LREP, rng.integers(0, 4, C), np.full(C, 2))
-              .view(np.int32))
-    got1, want1 = both(slabs_t, q, u, cap_pos=512)
-    q2 = ti(rng.integers(768, n, C))
-    u2 = ti(rng.integers(512, n, C))
-    cases = {
-        "full_walk": both(slabs_t, q, u),
-        "substitution": both(slabs_t, q_last, u, mut0=mut0, mut1=mut1),
-        "capture_512": (got1, want1),
-        "partial_from_512": both(got1[0], q2, u2, start_pos=512,
-                                 cap_pos=768, probs_in=got1[3],
-                                 carry_in=got1[8]),
-        "packet_sites": both(slabs_t, q, ti(rng.integers(0, 64, C)),
-                             site_mode="packet"),
-        "lc3": both(slabs_t, q, u, lc=3),
-    }
-    for name, (got, want) in cases.items():
-        d = max_abs_diff(got, want)
-        check(d == 0, f"repair kernel == plain version ({name}): {d}")
-        worst = max(worst, d)
-    # the partial re-cost equals the full walk it replaces
-    full2 = repair_cuda.repair_cost_cuda(
-        got1[0], q2, u2, ctx.data_u8, ctx.cand_dist, ctx.cand_len, ctx.log2,
-        lrep_fallback="match")
-    part2 = cases["partial_from_512"][0]
-    check(max_abs_diff(part2[:3], full2[:3]) == 0
-          and max_abs_diff(part2[4:8], full2[4:8]) == 0,
-          "partial re-cost from the snapshot == full walk")
-    kernels["repair_cost"]["max_abs_err"] = worst
-    say("repair", n=n, C=C, tile=tile, cases=len(cases), tolerance=0,
-        max_abs_err=worst,
-        cost_bytes_chain0=round(18 + (int(want1[1][0]) * 65536
-                                      + int(want1[2][0])) / 16384.0, 2))
-
-    # ---- 5. proposal kernel vs its plain version ---------------------
-    # C=8 chains of the 2 KiB block at lc=3 with two proposals each: the
-    # initial state, the same with uniform probabilities (tied metrics)
-    # and the state after three iterations, at each kind of site
-    cfg5 = AnnealConfig(chains=8, lc=3, proposals=2, iters_per_epoch=4)
-    s5 = engine.init_state(lc_ctx, cfg5)
-    states5 = {
-        "init": s5,
-        "uniform": s5._replace(chains=s5.chains._replace(
-            rank_probs=torch.full_like(s5.chains.rank_probs, T.PROB_INIT))),
-        "iterated": engine.run_iters(s5, lc_ctx, cfg5, 3)}
-    q5 = ti(rng.integers(0, n, 8))
-    q5[0], q5[1] = n - 1, 0
-    sites5 = {"sweep": dict(u_lo=512, span=256), "byte": dict(span=n),
-              "packet": dict(span=None)}
-    worst = 0
-    for sname, st in states5.items():
-        for site_name, site in sites5.items():
-            got, want = propose_both(lc_ctx, st, q5, cfg5, **site)
-            d = max_abs_diff(got, want)
-            check(d == 0, f"proposal kernel == plain version ({sname}, "
-                  f"{site_name}): {d}")
-            worst = max(worst, d)
-    kernels["propose"]["max_abs_err"] = worst
-    say("propose", n=n, C=8, proposals=2, lc=3, NC=want[6].shape[1],
-        cases=len(states5) * len(sites5), tolerance=0, max_abs_err=worst,
-        valid=int((want[6] < propose_cuda.BIG).sum()))
-
-    # ---- 6. slice parity: the engine on cuda == on cpu ---------------
-    # lc=0 at 128 chains; the lc=3 twin at 8 chains (its plain side takes
-    # ~90 s of host Python at 128)
-    for lc, C6 in ((0, C), (3, 8)):
-        cfg6 = AnnealConfig(chains=C6, iters_per_epoch=4, lc=lc)
-        t = time.time()
-        states = {}
-        for name in ("cuda", "cpu"):
-            c6 = engine.make_context(block, cfg6, name)
-            s = engine.run_iters(engine.init_state(c6, cfg6), c6, cfg6, 12)
-            states[name] = engine.state_to_numpy(s)
-        a, b = states["cuda"], states["cpu"]
-        same_state(a, b, f"engine state cuda == cpu (lc={lc})")
-        say("slice", n=n, C=C6, lc=lc, iters=12,
-            epochs=int(a["epochs_done"]), identical=True,
-            best_bytes=round(18 + (int(a["best_hi"]) * 65536
-                                   + int(a["best_lo"])) / 16384.0, 2),
-            seconds=round(time.time() - t, 1))
-
-    # ---- 7. the main path through the CLI ----------------------------
+    # ---- 3. the main path through the CLI ----------------------------
     src = os.path.join(WORK, "libc64k.bin")
     out = os.path.join(WORK, "libc64k.lzma")
     out0 = os.path.join(WORK, "libc64k.dp.lzma")
@@ -561,7 +347,7 @@ def main() -> int:
     # table), so a 64 KiB stream runs a few bytes over its predicted size
     # even for the seed itself: hold the annealed stream to the seed's
     # own gap (within 2.5 B), and a small block to the plain 2.5 B bound.
-    seed, _ = compressor._seed_slab(data, AnnealConfig())
+    seed, _ = optparse.seed_slab(data, AnnealConfig(), dev)
     seed_pred = 18 + optparse_native.cost_train(
         np.frombuffer(data, np.uint8), seed)[0] / 16384.0
     gap, seed_gap = len(blob) - predicted, dp_len - seed_pred
@@ -595,7 +381,7 @@ def main() -> int:
         anneal_moves_per_s=mps, seconds=round(seconds, 2),
         launches=json.dumps(launches).replace(" ", ""))
 
-    # ---- 8. the main-path shapes: equality and times -----------------
+    # ---- 4. the kernels at the main path's shapes: times --------------
     cfg8 = AnnealConfig(chains=C)
     c64 = engine.make_context(data, cfg8, dev)
     s64 = engine.init_state(c64, cfg8)
@@ -616,11 +402,15 @@ def main() -> int:
     full_bytes, full_ops, full_pk = repair_work(
         s64.chains.slab, q64, full_out[0], 0, M64, PR)
     full_bound, full_by = bound(full_bytes, full_ops, I32_OPS_PER_S)
-    # kernel against plain at n=65536, C=128 on the block's last 8192
-    # positions, from the kernel's own snapshot there (the plain pass
-    # takes one Python step per position: minutes for the whole block),
-    # with the mutation substituted in-pass as on the main path
+    # a partial walk at n=65536, C=128 over the block's last 8192
+    # positions, from the kernel's own snapshot there, with the mutation
+    # substituted in-pass as on the main path; the plain version (one
+    # Python step per position) timed on the same inputs
     start64 = n64 - 8192
+    mut0 = ti(P.pack_np(P.SREP, np.zeros(C, np.int64), np.ones(C, np.int64))
+              .view(np.int32))
+    mut1 = ti(P.pack_np(P.LREP, rng.integers(0, 4, C), np.full(C, 2))
+              .view(np.int32))
     snap = repair64(s64.chains.slab, q64, u64, cap_pos=start64)
     part_args = (snap[0], ti(rng.integers(start64, n64, C)),
                  ti(rng.integers(start64, n64, C)))
@@ -636,11 +426,10 @@ def main() -> int:
     kernels["repair_cost"]["plain_ms"] = (time.time() - t) * 1e3
     d = max_abs_diff(got, want)
     check(d == 0, f"repair kernel == plain version (n={n64}, partial): {d}")
-    kernels["repair_cost"]["max_abs_err"] = max(
-        kernels["repair_cost"]["max_abs_err"], d)
+    kernels["repair_cost"]["max_abs_err"] = d
     kernels["repair_cost"]["ms"] = device_ms(
         lambda: repair64(*part_args, **part_kw), 20, 3,
-        kernel="repair_kernel")
+        kernel="repair_kernel", counter=repair_cuda.repair_cost_cuda)
     kernels["repair_cost"]["call_ms"] = cuda_ms(
         lambda: repair64(*part_args, **part_kw), 20)
     part_bytes, part_ops, part_pk = repair_work(
@@ -648,7 +437,7 @@ def main() -> int:
         mut=(mut0, mut1))
     kernels["repair_cost"]["bound_ms"], kernels["repair_cost"][
         "bound_by"] = bound(part_bytes, part_ops, I32_OPS_PER_S)
-    say("repair_times", tolerance=0, full_walk_ms=full_ms,
+    say("repair_times", tolerance=0, max_abs_err=d, full_walk_ms=full_ms,
         full_walk_shape=f"C={C},n={n64},positions=0..{n64}",
         packets_per_chain_mean=float(full_pk.float().mean()),
         packets_per_chain_max=int(full_pk.max()),
@@ -662,72 +451,37 @@ def main() -> int:
         partial_bound_ms=kernels["repair_cost"]["bound_ms"],
         partial_plain_ms=kernels["repair_cost"]["plain_ms"])
 
-    # the same kernel with the block's bytes in device memory: a block
-    # too large for shared memory, the plain version on its last 2048
-    # positions from the kernel's own snapshot
-    nbig, Cg = 262144, 8
-    check(not repair_cuda.staging_plan(nbig, 0).bytes_in_smem,
-          f"a {nbig}-byte block reads its bytes from device memory")
-    cfgg = AnnealConfig(chains=Cg)
-    t = time.time()
-    cg = engine.make_context(corpus[:nbig], cfgg, dev)
-    ctx_s = time.time() - t
-    sg = engine.init_state(cg, cfgg)
-    startg = nbig - 2048
-
-    def repairg(slab_in, q_, u_, **kw_):
-        return repair_cuda.repair_cost_cuda(
-            slab_in, q_, u_, cg.data_u8, cg.cand_dist, cg.cand_len,
-            cg.log2, **kw, **kw_)
-    qg, ug = ti(rng.integers(0, nbig, Cg)), ti(rng.integers(0, nbig, Cg))
-    fullg_ms = cuda_ms(lambda: repairg(sg.chains.slab, qg, ug), 3)
-    snapg = repairg(sg.chains.slab, qg, ug, cap_pos=startg)
-    gargs = (snapg[0], ti(rng.integers(startg, nbig, Cg)),
-             ti(rng.integers(startg, nbig, Cg)))
-    gkw = dict(start_pos=startg, probs_in=snapg[3], carry_in=snapg[8],
-               mut0=mut0[:Cg], mut1=mut1[:Cg])
-    got = repairg(*gargs, **gkw)
-    want = repair_cuda.repair_cost_plain(
-        *gargs, cg.data, cg.cand_dist, cg.cand_len, cg.log2, **kw, **gkw)
-    torch.cuda.synchronize()
-    d = max_abs_diff(got, want)
-    check(d == 0, f"repair kernel, bytes in device memory == plain "
-          f"version (n={nbig}, partial): {d}")
-    kernels["repair_cost"]["max_abs_err"] = max(
-        kernels["repair_cost"]["max_abs_err"], d)
-    fullg_pk = repair_work(sg.chains.slab, qg,
-                           repairg(sg.chains.slab, qg, ug)[0], 0,
-                           cg.cand_dist.shape[1], PR)[2]
-    say("repair_global", n=nbig, C=Cg, tolerance=0, max_abs_err=d,
-        positions=f"{startg}..{nbig}", context_seconds=round(ctx_s, 1),
-        full_walk_ms=fullg_ms, packets_per_chain_max=int(fullg_pk.max()),
-        ns_per_packet_per_chain=fullg_ms * 1e6 / int(fullg_pk.max()))
-
-
     # the proposal stage of the main path's first iteration
-    q8, rec8, site8 = first_proposal(c64, s64, cfg8)
-    pargs, pkw = propose_args(c64, s64, q8, cfg8, rec=rec8, **site8)
-    got, want = propose_both(c64, s64, q8, cfg8, rec=rec8, **site8)
-    d = max_abs_diff(got, want)
+    pargs, pkw = first_proposal(c64, s64, cfg8)
+    got = propose_cuda.propose_cuda(*pargs, **pkw)
+    d = max_abs_diff(got, propose_cuda.propose_plain(*pargs, **pkw))
     check(d == 0, f"proposal kernel == plain version (n={n64}, C={C}): {d}")
-    kernels["propose"]["max_abs_err"] = max(
-        kernels["propose"]["max_abs_err"], d)
+    kernels["propose"]["max_abs_err"] = d
     kernels["propose"]["ms"] = device_ms(
         lambda: propose_cuda.propose_cuda(*pargs, **pkw),
-        kernel="propose_kernel")
+        kernel="propose_kernel", counter=propose_cuda.propose_cuda)
     kernels["propose"]["call_ms"] = cuda_ms(
         lambda: propose_cuda.propose_cuda(*pargs, **pkw), 50)
     kernels["propose"]["plain_ms"] = cuda_ms(
         lambda: propose_cuda.propose_plain(*pargs, **pkw), 5)
-    NC = want[6].shape[1]
+    NC = got[6].shape[1]
     # the correction kernel on the main path's table (one launch per
     # block context), beside the card's launch floor: the device time of
     # a one-element fill
     table64 = c64.log2
-    _, raw64, _ = log2_cuda.log2_correction_cuda(table64)
+    corr64, raw64, _ = log2_cuda.log2_correction_cuda(table64)
+    words_err = max_abs_diff([corr64], [log2_cuda.correction_plain(
+        raw64, table64)])
+    exact64 = log2_cuda.apply_correction(raw64.cpu().numpy(),
+                                         corr64.cpu().numpy())
+    d = max(words_err, int(np.abs(exact64[1:].astype(np.int64)
+                                  - T.LOG2_TABLE_NP[1:]).max()))
+    check(d == 0, f"correction kernel == plain version, and raw + "
+          f"correction == LOG2_TABLE for p in 1..2047: {d}")
+    kernels["log2_probe"]["max_abs_err"] = d
     kernels["log2_probe"]["ms"] = device_ms(
         lambda: log2_cuda.log2_correction_cuda(table64),
-        kernel="log2_correction")
+        kernel="log2_correction", counter=log2_cuda.log2_correction_cuda)
     kernels["log2_probe"]["call_ms"] = cuda_ms(
         lambda: log2_cuda.log2_correction_cuda(table64), 50)
     kernels["log2_probe"]["plain_ms"] = device_ms(
@@ -777,7 +531,8 @@ def main() -> int:
               f"{M8} x {walk8}, n={n64}")
         nbytes = 4 * (sum(a.numel() for a in cargs) + (2 * M8 + 1) * n64)
         tables8[f"{M8}x{walk8}"] = dict(
-            ms=device_ms(cand, 20, 5, kernel="candidates_kernel"),
+            ms=device_ms(cand, 20, 5, kernel="candidates_kernel",
+                         counter=candidates_cuda.candidates_cuda),
             call_ms=cuda_ms(cand, 20), plain_ms=plain8,
             bound_ms=bound(nbytes, 0, I32_OPS_PER_S)[0], bytes=nbytes,
             entries_per_row=float(want.count.mean()),
@@ -813,16 +568,28 @@ def main() -> int:
         launch_floor_ms=launch_floor_ms,
         log2_correction_host_ms=log2_host_ms)
 
+    staged = repair_cuda.repair_cost_cuda.staged
+    staged0 = {}
+
     def reset():
         for k in kernels.values():
             k["fn"].launches = 0
+        staged0.update(staged)
 
     by_path = {"main_path": launches}
+    staged_by_path = {}
 
     def launched(path: str, tables: int | None = 2) -> dict:
-        """The launches since reset(); `tables`: candidate tables a
-        context (one log2 correction each), 2 under init=optimal, 1
-        under greedy or mixed, None where the inits are mixed."""
+        """The launches since reset(), and the repair launches by where
+        they read the block's bytes (staged_by_path); `tables`: candidate
+        tables a context (one log2 correction each), 2 under
+        init=optimal, 1 under greedy or mixed, None where the inits are
+        mixed."""
+        staged_by_path[path] = {k: staged[k] - staged0[k] for k in staged}
+        check(sum(staged_by_path[path].values())
+              == kernels["repair_cost"]["fn"].launches,
+              f"every repair launch on the {path} path staged: "
+              f"{staged_by_path[path]}")
         counts = {name: k["fn"].launches for name, k in kernels.items()}
         for name, cnt in counts.items():
             check(cnt > 0, f"{name} launched on the {path} path ({cnt})")
@@ -833,7 +600,92 @@ def main() -> int:
         by_path[path] = counts
         return counts
 
-    # ---- 9. checkpoint/resume at 64 KiB, C=128 ------------------------
+    # ---- 5. the 1 MiB deployment: the bytes in device memory ----------
+    # compress --block-size 1048576 --lc 3 through the engine's entry
+    # points: 128 chains from the DP seed, every repair launch reading the
+    # bytes from device memory; the first full walk costs every chain at
+    # the host's exact cost (past 2**31), the kernel equals its plain
+    # version on every chain over the block's last 8,192 positions
+    # (tests/repair_cases.repair_rows), and two iterations end at a best
+    # the host costs the same
+    n1m = P.MAX_BLOCK
+    cfg1m = AnnealConfig(chains=C, chain_block=cli.chain_block(C, 3), lc=3,
+                         block_size=n1m)
+    check(not repair_cuda.staging_plan(n1m, 3).bytes_in_smem,
+          "a 1 MiB block reads its bytes from device memory")
+    arr1m = np.frombuffer(corpus[:n1m], np.uint8)
+    reset()
+    t = time.time()
+    c1m = engine.make_context(arr1m, cfg1m, dev)
+    ctx1m_s = time.time() - t
+    t = time.time()
+    s1m = engine.init_state(c1m, cfg1m)
+    torch.cuda.synchronize()
+    init1m_s = time.time() - t
+    host1m = optparse_native.cost_train(arr1m, P.to_u32(c1m.init_slab),
+                                        lc=3)[0]
+    card1m = {fp.to_int(h, lo) for h, lo in zip(
+        s1m.chains.cost_hi.tolist(), s1m.chains.cost_lo.tolist())}
+    check(card1m == {host1m} and host1m > 1 << 31,
+          f"1 MiB first walk: card {sorted(card1m)[:3]} == host {host1m}")
+    d = max_abs_diff(*repair_rows(c1m, cfg1m, s1m, range(C), 8192, rng))
+    check(d == 0, f"repair kernel == plain version at n={n1m}, lc=3: {d}")
+    kernels["repair_cost"]["max_abs_err"] = max(
+        kernels["repair_cost"]["max_abs_err"], d)
+    s1m = engine.run_iters(s1m, c1m, cfg1m, 2)
+    best1m = optparse_native.cost_train(arr1m, P.to_u32(s1m.best_slab),
+                                        lc=3)[0]
+    check(fp.to_int(s1m.best_hi, s1m.best_lo) == best1m,
+          f"1 MiB best after 2 iterations at the host's cost {best1m}")
+    counts1m = launched("device_memory")
+    check(counts1m["repair_cost"] == 1 + 2 + 2 and counts1m["propose"] == 2
+          and staged_by_path["device_memory"] == {"shared": 0, "device": 5},
+          f"1 MiB: the first walk, 2 checked, 2 iterations, all in device "
+          f"memory: {counts1m}, {staged_by_path['device_memory']}")
+    say("device_memory", n=n1m, C=C, lc=3, tolerance=0, max_abs_err=d,
+        positions=f"{n1m - 8192}..{n1m}", seed_cost=host1m, iters=2,
+        best_cost=best1m, context_seconds=round(ctx1m_s, 1),
+        init_state_seconds=round(init1m_s, 2),
+        staged=json.dumps(staged_by_path["device_memory"]).replace(" ", ""),
+        launches=json.dumps(counts1m).replace(" ", ""))
+
+    # ---- 6. the card against the CPU ---------------------------------
+    # the engine's state after 12 iterations of a 2 KiB block at 128
+    # chains; the whole-parse cost (scan_cost) of its best and of four
+    # chains on the card against the native cost; four 2 KiB blocks and a
+    # tail through compressor.compress (8 chains, 3 iterations a block)
+    t = time.time()
+    cfg6 = AnnealConfig(chains=C, iters_per_epoch=4)
+    states6 = {}
+    for d6 in (dev, "cpu"):
+        c6 = engine.make_context(block, cfg6, d6)
+        states6[str(d6)] = engine.run_iters(engine.init_state(c6, cfg6), c6,
+                                            cfg6, 12)
+    s6 = states6[str(dev)]
+    same_state(engine.state_to_numpy(s6),
+               engine.state_to_numpy(states6["cpu"]),
+               "engine state cuda == cpu")
+    parses6 = torch.cat([s6.best_slab[None], s6.chains.slab[:4]])
+    hi6, lo6, _, live6 = scan_cost.parse_cost_exact(
+        parses6, torch.as_tensor(np.frombuffer(block, np.uint8).astype(
+            np.int32), device=dev))
+    check(live6.is_cuda and bool(live6.any()), "scan_cost ran on the card")
+    costs6 = [fp.to_int(h, lo) for h, lo in zip(hi6.tolist(), lo6.tolist())]
+    want6 = [optparse_native.cost_train(np.frombuffer(block, np.uint8),
+                                        P.to_u32(s))[0] for s in parses6]
+    check(costs6 == want6, f"scan_cost {costs6} == cost_train {want6}")
+    data6 = corpus[32768:32768 + 4 * 2048 + 700]
+    cfg6c, moves6 = AnnealConfig(chains=8, block_size=2048), 5 * 3 * 8
+    got6c, want6c = (compressor.compress(data6, cfg6c, total_moves=moves6,
+                                         device=d6) for d6 in (dev, "cpu"))
+    check(got6c == want6c and compressor.decompress(got6c) == data6
+          and len(blocks_mod.unpack_container(got6c)) == 5,
+          "container bytes cuda == cpu, 5 streams, decodes")
+    say("cuda_vs_cpu", n=n, C=C, iters=12, identical=True,
+        scan_cost_parses=len(costs6), container_blocks=5,
+        container_bytes=len(got6c), seconds=round(time.time() - t, 1))
+
+    # ---- 7. checkpoint/resume at 64 KiB, C=128 ------------------------
     from megalania_tpu_torch.utils import checkpoint as ckpt_mod
     from megalania_tpu_torch.utils.metrics import MetricsLogger
     cfg9 = AnnealConfig(chains=C)
@@ -884,27 +736,7 @@ def main() -> int:
         seconds=round(time.time() - t, 1),
         launches=json.dumps(counts9).replace(" ", ""))
 
-    # ---- 10. whole-parse cost on the card -----------------------------
-    from megalania_tpu_torch.ops import scan_cost
-    t = time.time()
-    seed2k = ctx.init_slab
-    chains4 = cases["full_walk"][0][0][:4].contiguous()
-    got10 = [scan_cost.parse_cost_exact(seed2k, ctx.data)]
-    got10.append(scan_cost.parse_cost_exact(chains4, ctx.data))
-    arr2k = np.frombuffer(block, np.uint8)
-    want10 = [optparse_native.cost_train(arr2k, P.to_u32(s))[0]
-              for s in [seed2k, *chains4]]
-    costs10 = ([int(got10[0][0]) * 65536 + int(got10[0][1])]
-               + [int(h) * 65536 + int(lo_)
-                  for h, lo_ in zip(got10[1][0].cpu(), got10[1][1].cpu())])
-    check(costs10 == want10, f"scan_cost {costs10} == cost_train {want10}")
-    check(got10[1][3].is_cuda and bool(got10[1][3].any()),
-          "scan_cost ran on the card and marked live packets")
-    say("scan_cost", n=n, parses=len(want10), tolerance=0, equal=True,
-        seed_bytes=round(18 + want10[0] / 16384.0, 2),
-        seconds=round(time.time() - t, 1))
-
-    # ---- 11. chain sharding over a one-rank NCCL group ----------------
+    # ---- 8. chain sharding over a one-rank NCCL group -----------------
     import torch.distributed as dist
     from megalania_tpu_torch.parallel import mesh as mesh_mod, multihost
     with socket.socket() as sock:
@@ -926,12 +758,12 @@ def main() -> int:
         mesh_mod.exchange_best.slab_broadcasts = 0
         c11 = engine.make_context(block, cfg11, dev)
         s11 = engine.init_state(c11, cfg11, m.chain_group)
-        s11 = mesh_mod.sharded_run(s11, c11, cfg11, 8, m)
+        s11 = engine.run_iters(s11, c11, cfg11, 8, m.chain_group)
         counts11 = launched("distributed", 1)
         ref11 = engine.run_iters(engine.init_state(c11, cfg11), c11, cfg11,
                                  8)
         same_state(engine.state_to_numpy(s11), engine.state_to_numpy(ref11),
-                   "sharded_run over NCCL == run_iters")
+                   "run_iters over NCCL == run_iters alone")
         check(mesh_mod.exchange_best.scalar_gathers == 8
               and 0 < mesh_mod.exchange_best.slab_broadcasts < 8,
               "one best exchange per iteration, the slab on some")
@@ -946,11 +778,10 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
 
-    # ---- 12. the 1 MiB corpus: 16 blocks of 64 KiB at 512 chains -------
+    # ---- 9. the 1 MiB corpus: 16 blocks of 64 KiB at 512 chains --------
     # the scale runner tools/run_1mib_corpus_torch.py through
     # compressor.compress: one context, one log2 correction and 64
     # iterations per block (the main path's 32,768 moves), one container
-    from megalania_tpu_torch.parallel import blocks as blocks_mod
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import run_1mib_corpus_torch as r1m
     import run_64k_block_torch as r64k
@@ -986,19 +817,6 @@ def main() -> int:
         check(len(streams12[bi]) <= dp12[bi],
               f"block {bi}: annealed {len(streams12[bi])} <= DP-only "
               f"{dp12[bi]}")
-    # the repair and proposal kernels against their plain versions at
-    # this phase's shapes, on block 0 at 512 chains: the repair kernel's
-    # two waves (rows of both compared), the first iteration's 512
-    # proposal rows
-    c12 = engine.make_context(data12[:65536], cfg12, dev)
-    s12 = engine.init_state(c12, cfg12)
-    rows12 = [*range(8), *range(C12 - 8, C12)]
-    rep12 = repair_rows(c12, cfg12, s12, rows12, 4096, rng)
-    q12, rec12, site12 = first_proposal(c12, s12, cfg12)
-    prop12 = max_abs_diff(*propose_both(c12, s12, q12, cfg12, rec=rec12,
-                                        **site12))
-    check(rep12 == 0 and prop12 == 0, f"repair ({rep12}) and proposal "
-          f"({prop12}) kernels == plain versions at C={C12}, n=65536")
     split = res12["per_block"]
     say("corpus_1mib", n=res12["n"], blocks=blocks12, block_size=65536,
         C=C12, chain_block=res12["chain_block"], iters_per_block=iters12,
@@ -1018,14 +836,9 @@ def main() -> int:
                                    for bi in dp12}).replace(" ", ""),
         peak_device_bytes=res12["peak_device_bytes"],
         allocated_bytes_per_block=f"{min(alloc12)}..{max(alloc12)}",
-        launches=json.dumps(counts12).replace(" ", ""), tolerance=0,
-        repair_max_abs_err=rep12,
-        repair_rows_held=f"0..7,{C12 - 8}..{C12 - 1}",
-        repair_positions=f"{65536 - 4096}..65536",
-        propose_max_abs_err=prop12, propose_rows=C12,
-        propose_span=site12["span"])
+        launches=json.dumps(counts12).replace(" ", ""))
 
-    # ---- 13. a 64 KiB block at lc=3 through the 64 KiB runner ---------
+    # ---- 10. a 64 KiB block at lc=3 through the 64 KiB runner ----------
     # 128 chains (chain_block 128), init=mixed, 256 iterations: the
     # anneal must improve on its initial parses on the card.  Greedy
     # acceptance: the cooled rule's p_trans exceeds 1 for the first
@@ -1053,32 +866,9 @@ def main() -> int:
     check(res13["predicted"] < first13,
           f"the anneal improved the parse: best {res13['predicted']} < "
           f"first {first13}")
-    # the kernels against their plain versions at lc=3, n=65,536 (129,808
-    # B of shared memory per chain) from the initial state
-    rep13 = repair_rows(c13, cfg13, s13, [0, 1, 2, 3, 124, 125, 126, 127],
-                        4096, rng)
-    q13, rec13, site13 = first_proposal(c13, s13, cfg13)
-    prop13 = max_abs_diff(*propose_both(c13, s13, q13, cfg13, rec=rec13,
-                                        **site13))
-    check(rep13 == 0 and prop13 == 0, f"repair ({rep13}) and proposal "
-          f"({prop13}) kernels == plain versions at lc=3, n=65536")
-    # a second witness of the improvement: the same 256 iterations from
-    # the same initial state end at the runner's best, and the host's
-    # exact cost (optparse_native.cost_train, no code shared with the
-    # card) of the first and the final best parse equals the card's
-    arr13 = np.frombuffer(data13, np.uint8)
-    host13 = [optparse_native.cost_train(arr13, P.to_u32(s13.best_slab),
-                                         lc=3)[0]]
-    card13 = [fp.to_int(s13.best_hi, s13.best_lo)]
     end13 = engine.run_iters(s13, c13, cfg13, iters13)
     check(engine.best_cost_bytes(end13) == res13["predicted"],
           "run_iters from the initial state ends at the runner's best")
-    host13.append(optparse_native.cost_train(
-        arr13, P.to_u32(end13.best_slab), lc=3)[0])
-    card13.append(fp.to_int(end13.best_hi, end13.best_lo))
-    check(host13 == card13 and host13[1] < host13[0],
-          f"host cost of the first and final best {host13} == the card's "
-          f"{card13}, and falls")
     gap13 = len(blob13) - res13["predicted"]
     check(0 <= gap13 < 16, f"lc=3: 0 <= len(out) - predicted < 16 ({gap13})")
     say("block_64k_lc3", n=65536, C=C13, chain_block=cfg13.chain_block,
@@ -1092,42 +882,9 @@ def main() -> int:
         seconds=res13["seconds"],
         repair_smem_bytes=repair_cuda.staging_plan(65536, 3).smem_bytes,
         peak_device_bytes=res13["peak_device_bytes"],
-        launches=json.dumps(counts13).replace(" ", ""),
-        host_cost=f"{host13[0]}->{host13[1]}", host_cost_equal=True,
-        tolerance=0, repair_max_abs_err=rep13,
-        repair_rows_held="0..3,124..127",
-        repair_positions=f"{65536 - 4096}..65536",
-        propose_max_abs_err=prop13, propose_span=site13["span"])
-    for name, d in (("repair_cost", max(rep12, rep13)),
-                    ("propose", max(prop12, prop13))):
-        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], d)
+        launches=json.dumps(counts13).replace(" ", ""))
 
-    # ---- 14. a small container, cuda == cpu ---------------------------
-    # four 2 KiB blocks and a tail through compressor.compress, 8 chains,
-    # 3 iterations per block: the many-block orchestration itself
-    data14 = corpus[32768:32768 + 4 * 2048 + 700]
-    cfg14, moves14 = AnnealConfig(chains=8, block_size=2048), 5 * 3 * 8
-    reset()
-    t = time.time()
-    got14 = compressor.compress(data14, cfg14, total_moves=moves14,
-                                device=dev)
-    cuda14_s = time.time() - t
-    counts14 = launched("container")
-    t = time.time()
-    want14 = compressor.compress(data14, cfg14, total_moves=moves14,
-                                 device="cpu")
-    cpu14_s = time.time() - t
-    check(got14 == want14, "container bytes cuda == cpu")
-    check(len(blocks_mod.unpack_container(got14)) == 5
-          and compressor.decompress(got14) == data14,
-          "the container holds 5 streams and decodes")
-    say("container", n=len(data14), blocks=5, block_size=2048, C=8,
-        iters_per_block=moves14 // 5 // 8, bytes=len(got14),
-        identical=True, cuda_seconds=round(cuda14_s, 1),
-        cpu_seconds=round(cpu14_s, 1),
-        launches=json.dumps(counts14).replace(" ", ""))
-
-    # ---- 15. bench: bench_torch.py's three rows at full settings -------
+    # ---- 11. bench: bench_torch.py's three rows at full settings --------
     # 512 chains (chain_block 512) on SURVEY.md's bytes: n=2,048 with 512
     # warm-up + 512 timed iterations from init=mixed; the design point
     # n=65,536 with one sweep (512 iterations) + one, from init=mixed and
@@ -1160,28 +917,14 @@ def main() -> int:
             got = "%.2f" % rows15[key]["best_bytes"]
             check(got == want, f"bench {key}: best {got} B == the "
                   f"recorded {want} B")
-    # the kernels against their plain versions at the headline shape
-    # (n=2,048, 512 chains: two waves): the first iteration's 512
-    # proposal rows, and the repair kernel on rows 0-7 and 504-511 over
-    # the last 1,024 positions, at the initial state and after 40
-    # iterations (past the first sweep cycle)
+    # where an iteration's time goes at the headline shape (n=2,048, 512
+    # chains): its device time (profiler) against its wall time (host
+    # clock around 64 iterations ending in a synchronize), from the state
+    # after 40 iterations (past the first sweep cycle)
     cfg15 = AnnealConfig(chains=C15, chain_block=bench_torch.chain_block(C15),
                          init="mixed", accept="cooled")
     c15 = engine.make_context(bench_torch.corpus(bench_torch.N), cfg15, dev)
-    s15 = engine.init_state(c15, cfg15)
-    q15, rec15, site15 = first_proposal(c15, s15, cfg15)
-    prop15 = max_abs_diff(*propose_both(c15, s15, q15, cfg15, rec=rec15,
-                                        **site15))
-    rows_held15 = [*range(8), *range(C15 - 8, C15)]
-    mid15 = engine.run_iters(s15, c15, cfg15, 40)
-    rep15 = max(repair_rows(c15, cfg15, st, rows_held15, 1024, rng)
-                for st in (s15, mid15))
-    check(rep15 == 0 and prop15 == 0, f"repair ({rep15}) and proposal "
-          f"({prop15}) kernels == plain versions at C={C15}, n=2048")
-    # where an iteration's time goes at the headline shape: its device
-    # time (profiler) against its wall time (host clock around 64
-    # iterations ending in a synchronize), from the state after 40
-    held = [mid15]
+    held = [engine.run_iters(engine.init_state(c15, cfg15), c15, cfg15, 40)]
 
     def step15():
         held[0] = engine.run_iters(held[0], c15, cfg15, 1)
@@ -1193,7 +936,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall15 = (time.perf_counter() - t) * 1e3 / 64
     seconds15 = time.time() - t15
-    say("bench", C=C15, chain_block=cfg15.chain_block, tolerance=0,
+    say("bench", C=C15, chain_block=cfg15.chain_block,
         **{f"{key}_{f}": rows15[key][f] for key in rows15
            for f in ("best_bytes", "best_cost", "moves_per_s", "seconds",
                      "row_seconds")},
@@ -1202,14 +945,9 @@ def main() -> int:
         headline_device_ms_per_iter=dev15, headline_wall_ms_per_iter=wall15,
         headline_busy_share=dev15 / wall15,
         rows_seconds=round(rows_seconds15, 1), seconds=round(seconds15, 1),
-        launches=json.dumps(counts15).replace(" ", ""),
-        repair_max_abs_err=rep15,
-        repair_rows_held=f"0..7,{C15 - 8}..{C15 - 1}",
-        repair_positions=f"{bench_torch.N - 1024}..{bench_torch.N}",
-        propose_max_abs_err=prop15, propose_rows=C15,
-        propose_span=site15["span"])
+        launches=json.dumps(counts15).replace(" ", ""))
 
-    # ---- 16. bench_corpus: the four corpus files at the reference budget
+    # ---- 12. bench_corpus: the four corpus files at the reference budget
     # tools/bench_corpus_torch.py at n=2,048, 128 chains, 1,228,800 moves
     # (3 x 200 x n), with BENCH_CORPUS.json's overrides: the streams must
     # be the lengths megalania_tpu recorded there and decode, and
@@ -1255,50 +993,13 @@ def main() -> int:
         file_seconds=per_file("ours", "seconds"),
         decodes=True, seconds=round(seconds16, 1),
         launches=json.dumps(counts16).replace(" ", ""))
-    for name, d in (("repair_cost", rep15), ("propose", prop15)):
-        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], d)
-
-    # ---- 17. the 1 MiB deployment ------------------------------------
-    # compress --block-size 1048576 --lc 3: 128 chains from the DP seed,
-    # the bytes in device memory; the first full walk costs every chain
-    # at the host's exact cost (past 2**31), and the kernel equals the
-    # plain version on every chain over the block's last 8,192 positions
-    n1m = P.MAX_BLOCK
-    cfg1m = AnnealConfig(chains=128, chain_block=cli.chain_block(128, 3),
-                         lc=3, block_size=n1m)
-    check(not repair_cuda.staging_plan(n1m, 3).bytes_in_smem,
-          "a 1 MiB block reads its bytes from device memory")
-    t = time.time()
-    c1m = engine.make_context(corpus[:n1m], cfg1m, dev)
-    ctx1m_s = time.time() - t
-    staged = dict(repair_cuda.repair_cost_cuda.staged)
-    t = time.time()
-    s1m = engine.init_state(c1m, cfg1m)
-    torch.cuda.synchronize()
-    init1m_s = time.time() - t
-    host1m = optparse_native.cost_train(
-        np.frombuffer(corpus[:n1m], np.uint8), P.to_u32(c1m.init_slab),
-        lc=3)[0]
-    card1m = {fp.to_int(h, lo) for h, lo in zip(
-        s1m.chains.cost_hi.tolist(), s1m.chains.cost_lo.tolist())}
-    check(card1m == {host1m} and host1m > 1 << 31,
-          f"1 MiB first walk: card {sorted(card1m)[:3]} == host {host1m}")
-    d = repair_rows(c1m, cfg1m, s1m, list(range(128)), 8192, rng)
-    check(d == 0, f"repair kernel == plain version at n={n1m}, lc=3: {d}")
-    kernels["repair_cost"]["max_abs_err"] = max(
-        kernels["repair_cost"]["max_abs_err"], d)
-    now = repair_cuda.repair_cost_cuda.staged
-    check((now["device"] - staged["device"], now["shared"]) == (
-        3, staged["shared"]), f"1 MiB launches in device memory: {now}")
-    say("repair_1m", n=n1m, C=128, lc=3, tolerance=0, max_abs_err=d,
-        positions=f"{n1m - 8192}..{n1m}", seed_cost=host1m,
-        context_seconds=round(ctx1m_s, 1), init_state_seconds=round(
-            init1m_s, 2), staged=dict(now))
 
     rows = [{"name": name, "route": "cuda", "source": k["source"],
              "replaces": k["replaces"], "launches": launches[name],
              "launches_by_path": {p: c[name] for p, c in by_path.items()},
              "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+             **({"staged_by_path": staged_by_path}
+                if name == "repair_cost" else {}),
              "call_ms": k["call_ms"],
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
              "bound_by": k["bound_by"], "library_ms": k["library_ms"],

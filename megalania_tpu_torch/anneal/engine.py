@@ -44,10 +44,9 @@ import torch
 import torch.distributed as dist
 
 from ..match import candidates as C_
-from ..match.suffix import build_lce
+from ..match import optparse
 from ..models import packets as P
-from ..ops import (candidates_cuda, log2_cuda, problayout, propose_cuda,
-                   repair_cuda)
+from ..ops import log2_cuda, problayout, propose_cuda, repair_cuda
 from ..ops import tables as T
 from ..utils import fixedpoint as fp
 from ..utils import threefry as R
@@ -120,7 +119,7 @@ def choose_tile(n: int, cb: int = 128, lc: int = 0) -> int:
                 break
             t = t2
         return t
-    t = grow(int(os.environ.get("MEGALANIA_VMEM_BUDGET_MB", "14")) << 20)
+    t = grow(14 << 20)           # the reference's default VMEM budget
     if -(-n // t) > 64:
         t = max(t, grow(15500 << 10))
     return max(1, min(t, MAX_TILE, n))
@@ -135,25 +134,16 @@ def effective_schedule(cfg: AnnealConfig) -> str:
 def make_context(data: bytes, cfg: AnnealConfig, device) -> BlockContext:
     """Block preprocessing (LCE index, candidate tables, initial parse)
     and the device's log2 correction; tensors on `device`.  The index is
-    built on the host and uploaded once; the candidate tables are built
-    on `device` (ops/candidates_cuda: the kernel on cuda).  The index and
-    the annealer's candidate table run in the profiler span
-    context.index, the optimum-parse seed in its own two."""
+    built on the host and uploaded once (candidates.block_index); the
+    candidate tables are built on `device` (the kernel on cuda).  The
+    index and the annealer's candidate table run in the profiler span
+    context.index; the initial parse is optparse.seed_slab's."""
     device = torch.device(device)
     arr = np.frombuffer(bytes(data), np.uint8)
     with span("context.index"):
-        idx = build_lce(arr)
-        idx = idx._replace(rank=torch.as_tensor(idx.rank, device=device),
-                           sparse=torch.as_tensor(idx.sparse, device=device))
-        tab = candidates_cuda.candidate_table(
-            arr, cfg.max_candidates, cfg.max_walk, idx.rank, idx.sparse)
-    if cfg.init in ("optimal", "mixed_opt"):
-        from ..match import optparse
-        init_slab, _ = optparse.seed_slab(arr, cfg, index=idx)
-    elif cfg.init in ("greedy", "mixed"):
-        init_slab = C_.greedy_slab(arr, candidates_cuda.to_numpy(tab))
-    else:
-        init_slab = P.literal_slab(len(arr))
+        idx = C_.block_index(arr, device)
+        tab = C_.candidate_table(arr, cfg.max_candidates, cfg.max_walk, idx)
+    init_slab, _ = optparse.seed_slab(arr, cfg, index=idx, table=tab)
     return _block_context(arr, idx.rank, idx.sparse, tab, init_slab, cfg.lc,
                           device)
 

@@ -20,6 +20,7 @@ import numpy as np
 
 from .anneal import engine
 from .anneal.config import AnnealConfig
+from .match import optparse
 from .models import packets as P
 from .parallel import blocks as blocks_mod
 from .parallel import mesh as mesh_mod
@@ -43,28 +44,6 @@ def reference_budget(n: int, cfg: AnnealConfig) -> int:
     """Total moves the reference would spend on an n-byte input
     (3 steps x 200 epochs x n iters, main.c:66-69)."""
     return cfg.num_steps * cfg.num_epochs * max(n, 1)
-
-
-def _seed_slab(data: bytes, cfg: AnnealConfig):
-    """Host-only initial parse for the DP-only (total_moves=0) mode — the
-    same seed functions make_context uses.
-
-    Returns (slab, dists): dists is None for packed-format blocks and the
-    full-width distance array for wide (> 1 MiB) blocks, which always use
-    the optimum parse (the only seed that carries wide distances)."""
-    from .match import candidates as C_
-    from .match import optparse
-    from .match.suffix import build_lce
-
-    arr = np.frombuffer(bytes(data), np.uint8)
-    wide = len(arr) > P.MAX_BLOCK
-    if cfg.init == "literal" and not wide:
-        return P.literal_slab(len(arr)), None
-    if wide or cfg.init in ("optimal", "mixed_opt"):
-        return optparse.seed_slab(arr, cfg, wide=wide)
-    idx = build_lce(arr)
-    tab = C_.build_candidates(arr, cfg.max_candidates, cfg.max_walk, idx)
-    return C_.greedy_slab(arr, tab), None
 
 
 def compress_block(data: bytes, cfg: AnnealConfig,
@@ -95,7 +74,7 @@ def compress_block(data: bytes, cfg: AnnealConfig,
     if total_moves == 0:
         # DP-only mode: emit the configured initial parse directly (the
         # only mode for wide blocks)
-        slab, dists = _seed_slab(data, cfg)
+        slab, dists = optparse.seed_slab(data, cfg, device)
         stream = emit_mod.emit(data, slab, dict_size=cfg.dict_size,
                                lc=cfg.lc, dists=dists)
         return BlockResult(stream, n, 0.0, 0, time.time() - t0)
@@ -193,7 +172,7 @@ def compress(data: bytes, cfg: AnnealConfig = AnnealConfig(),
         full = sum(len(p) == cfg.block_size for p in parts)
         mesh = mesh_mod.make_mesh(max(full, 1))
         group = mesh.chain_group if mesh.chains > 1 else None
-    # DP-only work is host-side and never split: round-robin over ranks
+    # DP-only blocks are never split: round-robin over ranks
     mine = multihost.my_blocks(len(parts), mesh)
     lead = mesh is None or mesh.chain_rank == 0
 

@@ -12,14 +12,18 @@ eligibility (the reference's long-rep enumeration) is recovered at anneal
 time from the rep stack via O(1) LCE queries, so it needs no table.
 
 Build is vectorized numpy over bounded chain-walk rounds; on the card
-ops/candidates_cuda builds the same table, bit for bit.
+ops/candidates_cuda builds the same table, bit for bit.  candidate_table
+builds it on the block's device from a BlockIndex, the block's LCE index
+built once on the host and uploaded once.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
+from ..ops import candidates_cuda
 from ..ops import tables as T
 from .suffix import LCEIndex, build_lce, lce_np
 
@@ -89,6 +93,41 @@ def build_candidates(
         cur[mask] = nxt
     return CandidateTable(dist=dist, length=length, count=count)
 
+
+
+class BlockIndex(NamedTuple):
+    """A block's LCE index, built once on the host: `host`, the numpy
+    arrays the DP reads, and rank and sparse, their one upload to the
+    block's device, which candidate_table reads."""
+    host: LCEIndex
+    rank: torch.Tensor
+    sparse: torch.Tensor
+
+
+def block_index(data, device) -> BlockIndex:
+    """suffix.build_lce of uint8 `data`, uploaded to `device`."""
+    idx = build_lce(data)
+    return BlockIndex(idx, torch.as_tensor(idx.rank, device=device),
+                      torch.as_tensor(idx.sparse, device=device))
+
+
+def candidate_table(data, max_candidates: int, max_walk: int,
+                    index: BlockIndex) -> CandidateTable:
+    """The table of uint8 `data` as tensors on the index's device: the
+    kernel (ops/candidates_cuda) on cuda, build_candidates on cpu."""
+    if not index.rank.is_cuda:
+        return CandidateTable(*(torch.from_numpy(a) for a in build_candidates(
+            data, max_candidates, max_walk, index.host)))
+    prev = torch.as_tensor(bigram_prev(data).astype(np.int32),
+                           device=index.rank.device)
+    return CandidateTable(*candidates_cuda.candidates_cuda(
+        prev, index.rank, index.sparse, max_candidates, max_walk))
+
+
+def to_numpy(tab: CandidateTable) -> CandidateTable:
+    """The table as numpy arrays on the host (the greedy init and the
+    native DP read it there)."""
+    return CandidateTable(*(t.cpu().numpy() for t in tab))
 
 def enumerate_occurrences(data, pos: int, index: LCEIndex | None = None):
     """All (dist, ext) for earlier occurrences of the bigram at pos,

@@ -17,9 +17,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..models import packets as P
 from ..ops import tables as T
 from ..utils.profiling import span
 from . import candidates as C_
+from .suffix import build_lce
 
 
 def build_optimal_slab_native(data, tab: C_.CandidateTable, lc: int = 0,
@@ -40,7 +42,6 @@ def build_optimal_slab_native(data, tab: C_.CandidateTable, lc: int = 0,
     distance array (blocks over 1 MiB), otherwise None.
     """
     from . import optparse_native as on
-    from ..models import packets as P
 
     data = np.frombuffer(bytes(data), np.uint8) if isinstance(
         data, (bytes, bytearray)) else np.asarray(data, np.uint8)
@@ -49,7 +50,6 @@ def build_optimal_slab_native(data, tab: C_.CandidateTable, lc: int = 0,
         return (np.asarray(P.literal_slab(0)),
                 np.zeros(0, np.uint32) if wide else None)
     if index is None:
-        from .suffix import build_lce
         index = build_lce(data)
     # win_size=0: sweep the snapshot windows and keep the exact-cost best
     # (the best window varies per input)
@@ -80,37 +80,46 @@ def build_optimal_slab_native(data, tab: C_.CandidateTable, lc: int = 0,
     return best
 
 
-def seed_slab(data, cfg, index=None, wide: bool = False):
-    """Config-driven optimum-parse seed — the single function behind
-    both engine.make_context and the compressor's DP-only mode, so their
-    seeds can never drift.  Its two stages run in the profiler spans
-    seed.candidates (the seed's own, wider candidate table) and seed.dp.
-    index: the block's LCE index (suffix.build_lce), built here if None.
-    Where its rank and sparse are tensors on a device (make_context's
-    upload), the table is built there (ops/candidates_cuda: the kernel
-    on cuda) and downloaded once for the DP, with the index; numpy
-    arrays keep the numpy builder on the host.
+def seed_slab(data, cfg, device="cpu", index: C_.BlockIndex | None = None,
+              table: C_.CandidateTable | None = None):
+    """The block's initial parse under cfg.init: the one function that
+    decides it, for engine.make_context and the compressor's DP-only
+    mode alike, so their seeds can never drift.
+
+    - literal: the all-literal parse;
+    - greedy, mixed: the greedy walk (candidates.greedy_slab) over the
+      annealer's table (max_candidates x max_walk);
+    - optimal, mixed_opt, and every wide (> 1 MiB) block whatever its
+      init: the native DP over the seed's own, wider table
+      (opt_candidates x opt_walk), in the profiler spans seed.candidates
+      and seed.dp.
+
+    Every table is built on the index's device (candidates.candidate_table:
+    the kernel on cuda, the numpy builder on cpu); the DP reads the
+    index's host arrays.  index: the block's candidates.block_index,
+    built here on `device` where the caller has none; table: the
+    annealer's table, where the caller has built it.
 
     Returns (slab, dists): dists is the full-width distance array of a
-    wide (> 1 MiB) block, None otherwise.  The native library is built
-    from megalania_tpu_torch/native/optparse.cpp on first use; a failed
-    build raises."""
+    wide block, None otherwise.  The native library is built from
+    megalania_tpu_torch/native/optparse.cpp on first use; a failed build
+    raises."""
     data = np.frombuffer(bytes(data), np.uint8) if isinstance(
         data, (bytes, bytearray)) else np.asarray(data, np.uint8)
+    wide = len(data) > P.MAX_BLOCK
+    if cfg.init == "literal" and not wide:
+        return P.literal_slab(len(data)), None
     if index is None:
-        from .suffix import build_lce
-        index = build_lce(data)
+        index = C_.block_index(data, device)
+    if not wide and cfg.init in ("greedy", "mixed"):
+        if table is None:
+            table = C_.candidate_table(data, cfg.max_candidates,
+                                       cfg.max_walk, index)
+        return C_.greedy_slab(data, C_.to_numpy(table)), None
     with span("seed.candidates"):
-        if isinstance(index.rank, np.ndarray):
-            tab = C_.build_candidates(data, cfg.opt_candidates, cfg.opt_walk,
-                                      index)
-        else:
-            from ..ops import candidates_cuda
-            tab = candidates_cuda.to_numpy(candidates_cuda.candidate_table(
-                data, cfg.opt_candidates, cfg.opt_walk, index.rank,
-                index.sparse))
-            index = candidates_cuda.host_index(index.rank, index.sparse)
+        tab = C_.to_numpy(C_.candidate_table(
+            data, cfg.opt_candidates, cfg.opt_walk, index))
     with span("seed.dp"):
         return build_optimal_slab_native(
             data, tab, lc=cfg.lc, passes=cfg.opt_passes,
-            win_size=cfg.opt_window, index=index, wide=wide)
+            win_size=cfg.opt_window, index=index.host, wide=wide)

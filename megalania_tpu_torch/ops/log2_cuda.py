@@ -15,7 +15,7 @@ probe _log2_probe_kernel and the host-side check and pack).  Bound on the
 card: bytes, 8,192 read and 520 written (the words and the status), ~2.6
 ns at 3.35 TB/s; one launch costs the card's launch floor, far above
 that.  The kernel also writes the raw costs, a verification output that
-the engine does not use: the tests and chip_smoke.py hold them against
+the engine does not use: tests/test_torch_cuda.py holds them against
 the exact table.  Plain version:
 `correction_plain`, the same check and pack in torch on any device; on
 the CPU the probe's plain version is the exact table itself.

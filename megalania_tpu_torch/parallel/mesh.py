@@ -24,7 +24,6 @@ import torch
 import torch.distributed as dist
 
 from ..anneal import engine
-from ..anneal.config import AnnealConfig
 from ..utils import fixedpoint as fp
 
 
@@ -90,16 +89,6 @@ def exchange_best(best_slab, best_hi, best_lo, prev_hi, prev_lo, group):
 
 exchange_best.scalar_gathers = 0
 exchange_best.slab_broadcasts = 0
-
-
-def sharded_run(state_shard: engine.AnnealState, ctx: engine.BlockContext,
-                cfg: AnnealConfig, n_iters: int,
-                mesh: Mesh) -> engine.AnnealState:
-    """n_iters iterations of this rank's chain shard of one block, with
-    the best exchanged over the block group (the counterpart of the
-    reference's sharded_step)."""
-    return engine.run_iters(state_shard, ctx, cfg, n_iters,
-                            group=mesh.chain_group)
 
 
 def shard_state(state: engine.AnnealState, rank: int,

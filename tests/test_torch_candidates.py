@@ -2,8 +2,8 @@
 CPU: the port's numpy builder equals the reference's
 (megalania_tpu.match.candidates) on every case, a scalar walk written
 like the kernel's loop (csrc/candidates.cu, one thread per position)
-equals the numpy builder, row for row, and the dispatch leaves the CPU
-on the numpy builder.  The kernel itself is held to the numpy table on
+equals the numpy builder, row for row, and candidates.candidate_table
+leaves the CPU on the numpy builder.  The kernel itself is held to the numpy table on
 the card (test_torch_cuda.py)."""
 import numpy as np
 import pytest
@@ -12,9 +12,7 @@ import torch
 from candidate_cases import CASES, block, index, numpy_table
 from megalania_tpu.match import candidates as ref_candidates
 from megalania_tpu.match import suffix as ref_suffix
-from megalania_tpu_torch.anneal.config import AnnealConfig
 from megalania_tpu_torch.match import candidates as C_
-from megalania_tpu_torch.match import optparse
 from megalania_tpu_torch.ops import candidates_cuda
 from megalania_tpu_torch.ops import tables as T
 
@@ -92,14 +90,13 @@ def test_cpu_dispatch_is_the_numpy_table(case):
     name, M, walk = CASES[case]
     idx = index(name)
     before = candidates_cuda.candidates_cuda.launches
-    got = candidates_cuda.candidate_table(
-        block(name), M, walk, torch.as_tensor(idx.rank),
-        torch.as_tensor(idx.sparse))
+    got = C_.candidate_table(block(name), M, walk, C_.BlockIndex(
+        idx, torch.as_tensor(idx.rank), torch.as_tensor(idx.sparse)))
     assert candidates_cuda.candidates_cuda.launches == before
     for g, w in zip(got, numpy_table(case)):
         assert g.device.type == "cpu" and g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), w)
-    for g, w in zip(candidates_cuda.to_numpy(got), numpy_table(case)):
+    for g, w in zip(C_.to_numpy(got), numpy_table(case)):
         np.testing.assert_array_equal(g, w)
 
 
@@ -110,17 +107,3 @@ def test_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         candidates_cuda.candidates_cuda(prev, torch.as_tensor(idx.rank),
                                         torch.as_tensor(idx.sparse), 20, 96)
-
-
-def test_seed_slab_tensor_index_on_cpu():
-    """seed_slab with the index's arrays as CPU tensors (make_context's
-    upload to a cpu device) seeds the same parse as with the numpy index
-    (the compressor's DP-only mode)."""
-    data = block("survey2k")
-    idx = index("survey2k")
-    cfg = AnnealConfig()
-    want, _ = optparse.seed_slab(data, cfg, index=idx)
-    got, _ = optparse.seed_slab(
-        data, cfg, index=idx._replace(rank=torch.as_tensor(idx.rank),
-                                      sparse=torch.as_tensor(idx.sparse)))
-    np.testing.assert_array_equal(got, want)

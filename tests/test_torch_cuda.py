@@ -1,30 +1,63 @@
-"""megalania_tpu_torch's CUDA kernels against their plain PyTorch
-versions, on the card.  Marked `cuda`: they skip where there is no CUDA
-device.  On a machine with a card (jax need not be installed there):
+"""megalania_tpu_torch on the card against its plain PyTorch versions
+and its CPU path: every comparison of a card's output with a plain or a
+CPU output lives here, at small shapes and at the deployments' shapes.
+Marked `cuda`: they skip where there is no CUDA device.  On a machine
+with a card (jax need not be installed there):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import functools
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from candidate_cases import CASES, block, index, numpy_table
-from repair_cases import C, DATA, EDGE_DATA, kernel_inputs
+from candidate_cases import CASES, WIDE_CASES, block, index, numpy_table
+from repair_cases import (C, DATA, EDGE_DATA, first_proposal, kernel_inputs,
+                          repair_rows)
+from megalania_tpu_torch import compressor
 from megalania_tpu_torch.anneal import engine
 from megalania_tpu_torch.anneal.config import AnnealConfig
 from megalania_tpu_torch.match import candidates as C_
-from megalania_tpu_torch.match import optparse
+from megalania_tpu_torch.match import optparse, optparse_native
 from megalania_tpu_torch.match.suffix import build_lce
 from megalania_tpu_torch.models import packets as P
 from megalania_tpu_torch.ops import (candidates_cuda, log2_cuda, propose_cuda,
-                                     repair_cuda)
+                                     repair_cuda, scan_cost)
 from megalania_tpu_torch.ops import tables as T
+from megalania_tpu_torch.parallel import blocks
+from megalania_tpu_torch.utils import fixedpoint as fp
 
 pytestmark = pytest.mark.cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORPUS = os.path.join(ROOT, "tools", "corpus")
+LIBC = open(os.path.join(CORPUS, "libc.so"), "rb").read()
+SURVEY = open(os.path.join(CORPUS, "survey.md"), "rb").read()
+EDGES512 = [*range(8), *range(504, 512)]     # rows of both waves
+# The main path's shapes and the deployments': id -> (bytes, AnnealConfig
+# fields, the rows the plain repair walks, the positions it walks at the
+# block's end, the iterations run first).  64 KiB at 128 chains (the
+# shipped defaults); 256 KiB and 1 MiB, whose bytes do not fit in shared
+# memory; 512 chains, two waves of blocks; lc=3; bench.py's headline
+# shape, 2 KiB at 512 chains from init=mixed, also past its first sweep.
+SHAPES = {
+    "64k-c128": (LIBC[:1 << 16], dict(chains=128), range(128), 8192, 0),
+    "256k-c8": (LIBC[:1 << 18], dict(chains=8), range(8), 2048, 0),
+    "64k-c512": (LIBC[:1 << 16], dict(chains=512, chain_block=512),
+                 EDGES512, 4096, 0),
+    "64k-lc3": (LIBC[:1 << 16], dict(chains=128, lc=3, init="mixed",
+                                     accept="greedy"),
+                [0, 1, 2, 3, 124, 125, 126, 127], 4096, 256),
+    "2k-c512": (SURVEY[:2048], dict(chains=512, chain_block=512,
+                                    init="mixed"), EDGES512, 1024, 0),
+    "2k-c512-iterated": (SURVEY[:2048], dict(chains=512, chain_block=512,
+                                             init="mixed"),
+                         EDGES512, 1024, 40),
+    "1m-lc3": (LIBC[:1 << 20], dict(chains=128, lc=3, block_size=1 << 20),
+               range(128), 8192, 0),
+}
 
 
 @pytest.fixture(scope="module")
@@ -37,6 +70,15 @@ def dev():
 @pytest.fixture(scope="module")
 def ctx(dev):
     return engine.make_context(DATA, AnnealConfig(chains=C), dev)
+
+
+@functools.cache
+def deployment(shape: str, dev):
+    """(context, config, fresh state) of a SHAPES entry on `dev`."""
+    data, fields = SHAPES[shape][:2]
+    cfg = AnnealConfig(**fields)
+    ctx = engine.make_context(data, cfg, dev)
+    return ctx, cfg, engine.init_state(ctx, cfg)
 
 
 def _same(got, want):
@@ -86,14 +128,15 @@ def test_log2_correction_raises_beyond_one(dev):
     {}, {"site_mode": "packet"}, {"lrep_fallback": "match"},
     {"cap_pos": 512}, {"mut": True}, {"lc": 3},
     {"lc": 3, "lrep_fallback": "match"},
-    {"edges": True, "lrep_fallback": "match"}],
+    {"edges": True, "lrep_fallback": "match"}, {"partial": True}],
     ids=["full", "packet", "match", "capture", "substitution", "lc3",
-         "lc3-match", "tile_edges"])
+         "lc3-match", "tile_edges", "partial"])
 def test_repair_kernel_matches_plain(dev, ctx, kw):
     """The kernel equals the plain version on every output.  The inputs
     (tests/repair_cases.py) make the repair change packet lengths;
     `tile_edges` plants long reps where a tile ends, so a changed length
-    falls where the walker's lookahead stops."""
+    falls where the walker's lookahead stops; `partial` re-costs from the
+    kernel's own snapshot, and equals the full walk it replaces."""
     rng = np.random.default_rng(5)
     kw = dict(kw)
     lc = kw.get("lc", 0)
@@ -109,11 +152,22 @@ def test_repair_kernel_matches_plain(dev, ctx, kw):
         q[0] = n - 1
         kw["mut0"] = slabs[:, 3].contiguous()
         kw["mut1"] = slabs[:, 7].contiguous()
-    got = repair_cuda.repair_cost_cuda(slabs, q, u, c.data_u8, c.cand_dist,
-                                       c.cand_len, c.log2, **kw)
-    want = repair_cuda.repair_cost_plain(slabs, q, u, c.data, c.cand_dist,
-                                         c.cand_len, c.log2, **kw)
+    tabs = (c.cand_dist, c.cand_len, c.log2)
+    full = None
+    if kw.pop("partial", False):
+        snap = repair_cuda.repair_cost_cuda(slabs, q, u, c.data_u8, *tabs,
+                                            cap_pos=256)
+        slabs = snap[0]
+        q, u = (torch.as_tensor(rng.integers(lo, n, C), dtype=torch.int32,
+                                device=dev) for lo in (384, 256))
+        full = repair_cuda.repair_cost_cuda(slabs, q, u, c.data_u8, *tabs)
+        kw.update(start_pos=256, cap_pos=512, probs_in=snap[3],
+                  carry_in=snap[8])
+    got = repair_cuda.repair_cost_cuda(slabs, q, u, c.data_u8, *tabs, **kw)
+    want = repair_cuda.repair_cost_plain(slabs, q, u, c.data, *tabs, **kw)
     _same(got, want)
+    if full is not None:        # all but the snapshot, taken elsewhere
+        _same(got[:3] + got[4:8], full[:3] + full[4:8])
 
 
 @pytest.mark.parametrize("state", ["fresh", "iterated"])
@@ -149,38 +203,63 @@ def test_propose_kernel_matches_plain(dev, lc, proposals, site, state):
     _same(got, propose_cuda.propose_plain(*args, **kw))
 
 
+# id -> (bytes, AnnealConfig fields over 8 chains, 4 iterations an epoch)
 ENGINE_CONFIGS = {
-    "defaults": {},
-    "branches": dict(site_mode="packet", proposals=2, accept="mixed",
-                     init="mixed_opt", lrep_fallback="litsrep"),
+    "defaults": (DATA[:256], {}),
+    "branches": (DATA[:256], dict(site_mode="packet", proposals=2,
+                                  accept="mixed", init="mixed_opt",
+                                  lrep_fallback="litsrep")),
+    "lc3": (DATA[:256], dict(lc=3)),
+    "2k-c128": (LIBC[16384:16384 + 2048], dict(chains=128)),
+    "container": (LIBC[32768:32768 + 4 * 2048 + 700],
+                  dict(block_size=2048)),
 }
 
 
 @pytest.mark.parametrize("config", list(ENGINE_CONFIGS))
 def test_engine_cuda_equals_cpu(dev, config):
-    cfg = AnnealConfig(chains=C, iters_per_epoch=4, **ENGINE_CONFIGS[config])
+    """Twelve iterations on the card give the CPU's state, field for
+    field, and the best parse's cost on the card is the one scan_cost
+    finds on the card and the native coster on the host.  `container`:
+    four 2 KiB blocks and a tail through compressor.compress, three
+    iterations a block, give the CPU's bytes."""
+    data, fields = ENGINE_CONFIGS[config]
+    cfg = AnnealConfig(**{"chains": C, "iters_per_epoch": 4, **fields})
+    if config == "container":
+        got, want = (compressor.compress(data, cfg, total_moves=5 * 3 * C,
+                                         device=d) for d in (dev, "cpu"))
+        assert got == want and compressor.decompress(got) == data
+        assert len(blocks.unpack_container(got)) == 5
+        return
     out = []
-    for d in (dev, "cpu"):
-        c = engine.make_context(DATA[:256], cfg, d)
-        out.append(engine.state_to_numpy(
-            engine.run_iters(engine.init_state(c, cfg), c, cfg, 12)))
-    for f in out[0]["chains"]:
-        np.testing.assert_array_equal(out[0]["chains"][f],
-                                      out[1]["chains"][f], err_msg=f)
-    for f in out[0]:
+    for d in ("cpu", dev):
+        c = engine.make_context(data, cfg, d)
+        out.append(engine.run_iters(engine.init_state(c, cfg), c, cfg, 12))
+    want, got = (engine.state_to_numpy(s) for s in out)
+    for f in got["chains"]:
+        np.testing.assert_array_equal(got["chains"][f], want["chains"][f],
+                                      err_msg=f)
+    for f in got:
         if f != "chains":
-            np.testing.assert_array_equal(out[0][f], out[1][f], err_msg=f)
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    best = out[1]
+    hi, lo, _, live = scan_cost.parse_cost_exact(best.best_slab, c.data,
+                                                 cfg.lc)
+    assert live.device == dev and bool(live.any())
+    host = optparse_native.cost_train(np.frombuffer(data, np.uint8),
+                                      P.to_u32(best.best_slab), lc=cfg.lc)[0]
+    assert fp.to_int(hi, lo) == fp.to_int(best.best_hi, best.best_lo) == host
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", [*CASES, *WIDE_CASES])
 def test_candidates_kernel_equals_numpy(dev, case):
     """The kernel's table is the numpy builder's, bit for bit."""
-    name, M, walk = CASES[case]
+    name, M, walk = {**CASES, **WIDE_CASES}[case]
     idx = index(name)
     before = candidates_cuda.candidates_cuda.launches
-    got = candidates_cuda.candidate_table(
-        block(name), M, walk, torch.as_tensor(idx.rank, device=dev),
-        torch.as_tensor(idx.sparse, device=dev))
+    got = C_.candidate_table(block(name), M, walk, C_.BlockIndex(
+        idx, torch.as_tensor(idx.rank, device=dev),
+        torch.as_tensor(idx.sparse, device=dev)))
     assert (candidates_cuda.candidates_cuda.launches
             == before + (len(block(name)) >= 2))
     for g, w in zip(got, numpy_table(case)):
@@ -202,8 +281,7 @@ def test_make_context_on_card_equals_host(dev, init, kernels):
     assert candidates_cuda.candidates_cuda.launches == before + kernels
     idx = build_lce(data)
     tab = C_.build_candidates(data, cfg.max_candidates, cfg.max_walk, idx)
-    slab = (optparse.seed_slab(data, cfg, index=idx)[0] if init == "optimal"
-            else C_.greedy_slab(data, tab))
+    slab, _ = optparse.seed_slab(data, cfg)
     want = engine.context_from_numpy(
         data=data.astype(np.int32), rank=idx.rank, sparse=idx.sparse,
         cand_dist=tab.dist, cand_len=tab.length, cand_count=tab.count,
@@ -213,53 +291,49 @@ def test_make_context_on_card_equals_host(dev, init, kernels):
             assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
-def test_repair_kernel_at_1m_lc3_reads_device_memory(dev):
-    """The 1 MiB, lc=3 deployment (128 chains, the DP seed): the repair
-    kernel takes its device-memory branch (the bytes do not fit in shared
-    memory), every chain's first full walk costs the seed at the host's
-    exact cost, past 2**31, and from its own snapshot at n - 8,192 a
-    partial walk with a mutation substituted equals the plain version on
-    every chain, output for output."""
-    from megalania_tpu_torch.match import optparse_native
-    from megalania_tpu_torch.utils import fixedpoint as fp
-    n, chains = P.MAX_BLOCK, 128
-    data = open(os.path.join(ROOT, "tools", "corpus", "libc.so"),
-                "rb").read()[:n]
-    cfg = AnnealConfig(chains=chains, chain_block=128, lc=3, block_size=n)
-    assert not repair_cuda.staging_plan(n, 3).bytes_in_smem
-    ctx = engine.make_context(data, cfg, dev)
-    staged = dict(repair_cuda.repair_cost_cuda.staged)
-    state = engine.init_state(ctx, cfg)
-    want = optparse_native.cost_train(np.frombuffer(data, np.uint8),
-                                      P.to_u32(ctx.init_slab), lc=3)[0]
-    assert want > 1 << 31
-    got = {fp.to_int(h, lo) for h, lo in zip(state.chains.cost_hi.tolist(),
-                                             state.chains.cost_lo.tolist())}
-    assert got == {want}
-
-    rng = np.random.default_rng(15)
-    start = n - 8192
-
-    def ti(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
-    kw = dict(site_mode=cfg.site_mode, lrep_fallback=cfg.lrep_fallback,
-              lc=3)
-    tabs = (ctx.cand_dist, ctx.cand_len, ctx.log2)
-    snap = repair_cuda.repair_cost_cuda(
-        state.chains.slab, ti(rng.integers(0, n, chains)),
-        ti(rng.integers(0, n, chains)), ctx.data_u8, *tabs, cap_pos=start,
-        **kw)
-    args = (snap[0], ti(rng.integers(start, n, chains)),
-            ti(rng.integers(start, n, chains)))
-    part = dict(start_pos=start, probs_in=snap[3], carry_in=snap[8],
-                mut0=ti(P.pack_np(P.SREP, np.zeros(chains, np.int64),
-                                  np.ones(chains, np.int64)).view(np.int32)),
-                mut1=ti(P.pack_np(P.LREP, rng.integers(0, 4, chains),
-                                  np.full(chains, 2)).view(np.int32)), **kw)
-    got = repair_cuda.repair_cost_cuda(*args, ctx.data_u8, *tabs, **part)
-    plain = repair_cuda.repair_cost_plain(*args, ctx.data, *tabs, **part)
-    _same(got, plain)
-    assert fp.to_int(got[1][0], got[2][0]) > 1 << 31
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_repair_kernel_at_deployment_shapes(dev, shape):
+    """At each shape, after its iterations: the best parse's cost on the
+    card is the host's exact cost (optparse_native.cost_train, no code
+    shared with the card), past 2**31 at 1 MiB; from the fresh state,
+    every chain costs its start, the seed or literals; the kernel reads the
+    bytes from shared memory up to 64 KiB and from device memory above;
+    and from its own snapshot, with a mutation substituted, it equals the
+    plain version on the rows held, output for output."""
+    data, _, rows, window, iters = SHAPES[shape]
+    ctx, cfg, state = deployment(shape, dev)
+    arr = np.frombuffer(data, np.uint8)
+    if iters:
+        state = engine.run_iters(state, ctx, cfg, iters)
+    want = optparse_native.cost_train(arr, P.to_u32(state.best_slab),
+                                      lc=cfg.lc)[0]
+    assert fp.to_int(state.best_hi, state.best_lo) == want
+    assert want > 1 << 31 or len(data) < 1 << 20
+    if not iters:       # every chain costs its start: the seed or literals
+        seed, lit = (optparse_native.cost_train(arr, s, lc=cfg.lc)[0]
+                     for s in (P.to_u32(ctx.init_slab),
+                               P.literal_slab(len(arr))))
+        costs = {fp.to_int(h, lo) for h, lo in zip(
+            state.chains.cost_hi.tolist(), state.chains.cost_lo.tolist())}
+        assert costs == ({seed, lit} if cfg.init in ("mixed", "mixed_opt")
+                         else {seed})
+    plan = repair_cuda.staging_plan(len(data), cfg.lc)
+    assert plan.bytes_in_smem == (len(data) <= 1 << 16)
+    before = dict(repair_cuda.repair_cost_cuda.staged)
+    _same(*repair_rows(ctx, cfg, state, rows, window,
+                       np.random.default_rng(15)))
     now = repair_cuda.repair_cost_cuda.staged
-    assert (now["device"] - staged["device"], now["shared"]) == (
-        3, staged["shared"])
+    branch = "shared" if plan.bytes_in_smem else "device"
+    assert {k: now[k] - before[k] for k in now} == {
+        k: 2 * (k == branch) for k in now}
+
+
+@pytest.mark.parametrize("shape", ["64k-c128", "64k-c512", "64k-lc3",
+                                   "2k-c512"])
+def test_propose_kernel_at_deployment_shapes(dev, shape):
+    """The proposal stage of the main path's first iteration at each
+    shape: every output of the kernel equals propose_plain's."""
+    ctx, cfg, state = deployment(shape, dev)
+    args, kw = first_proposal(ctx, state, cfg)
+    _same(propose_cuda.propose_cuda(*args, **kw),
+          propose_cuda.propose_plain(*args, **kw))

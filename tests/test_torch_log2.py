@@ -2,7 +2,7 @@
 against megalania_tpu's pallas_repair2.log2_correction (its Pallas probe
 in interpret mode) and the numpy oracle build_correction, tolerance 0.
 The plain version stands in for the kernel on the CPU; the kernel itself
-is held against it in tests/test_torch_cuda.py and chip_smoke.py."""
+is held against it in tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import jax.numpy as jnp

@@ -38,8 +38,9 @@ def gather(out, rank, world):
 
 
 def run(out, rank, world, cfg_json, start, n, iters, *ck):
-    """sharded_run of this rank's chains of one block, from a fresh
-    state or from this rank's rows of a checkpoint (ck)."""
+    """run_iters over the chain group of this rank's chains of one
+    block, from a fresh state or from this rank's rows of a checkpoint
+    (ck)."""
     cfg = AnnealConfig(**json.loads(cfg_json))
     data = LIBC[int(start):int(start) + int(n)]
     m = mesh.make_mesh(1)
@@ -49,7 +50,7 @@ def run(out, rank, world, cfg_json, start, n, iters, *ck):
         state = mesh.shard_state(checkpoint.load(ck[0], "cpu"), rank, world)
     else:
         state = engine.init_state(ctx, cfg, m.chain_group)
-    state = mesh.sharded_run(state, ctx, cfg, int(iters), m)
+    state = engine.run_iters(state, ctx, cfg, int(iters), m.chain_group)
     st = engine.state_to_numpy(state)
     arrays = {f"chains.{f}": v for f, v in st.pop("chains").items()}
     arrays.update(st)

@@ -18,8 +18,9 @@ ones.  It starts with libc, as the reference's does, so a corpus size of
         [corpus_bytes] [--device {cuda,cpu}] [-o OUT]
 
 moves_per_block 0 (the default) is DP-only: the optimum-parse seed of
-each block, emitted on the host, so the card does no work; blocks over
-1 MiB run the wide pipeline, which is DP-only.  lc defaults to 3, block
+each block, its candidate table built on --device and its DP and
+emission on the host; blocks over 1 MiB run the wide pipeline, which is
+DP-only.  lc defaults to 3, block
 to 1 MiB, corpus_bytes to 4 MiB.  --device cuda (the default) fails
 without a card.  Prints one JSON line; main() returns it as a dict.
 """
